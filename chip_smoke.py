@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds every CUDA kernel of the port's main path from the sources in
 the checkout, holds each kernel against its plain PyTorch twin on the
-card, drives the main path (the quickstart FedAvg round, natively and as
+card, folds a round that mixes codecs and bases against the numpy engine,
+drives the main path (the quickstart FedAvg round, natively and as
 a FLARE job, clients fitting on the card and the server folding with the
 kernel), folds a 50M-parameter x 16-client round at the benchmark's
 geometry, and prints one JSON line per phase.  The line before the last
@@ -104,7 +105,7 @@ def phase_env():
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     t0 = time.perf_counter()
-    _build.build(["weighted_sum"])
+    _build.build("weighted_sum")
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("weighted_sum",
                                                        "").splitlines()
@@ -202,13 +203,58 @@ def _same(a, b) -> bool:
         for x, y in zip(a.final_parameters, b.final_parameters))
 
 
+def phase_mixed_round(dev):
+    """A round whose clients mix raw, bf16, int8 and int8-delta payloads
+    (two bases), interleaved: the deferred mean chains one launch per run
+    of like clients through ``acc``, the streaming fold keeps its
+    accumulator on the card; both bitwise equal to the numpy engine."""
+    from repro_torch.fl import agg_kernels as K
+    from repro_torch.fl import flat as F
+
+    rng = np.random.default_rng(7)
+    layout = F.layout_for([("float32", (1000, 123)), ("float32", (4567,))])
+    n = layout.total_size
+    vec = lambda s: rng.normal(0, s, n).astype(np.float32)  # noqa: E731
+    bases = [F.FlatParams.from_arrays(F.unflatten_vector(vec(0.5), layout),
+                                      layout),
+             F.QuantParams(layout, "q8", *F.quantize_int8(vec(0.5)))]
+    pays = []
+    for i in range(12):
+        kind = i % 5
+        if kind == 0:
+            pays.append(F.FlatParams.from_arrays(
+                F.unflatten_vector(vec(1.0 + i), layout), layout))
+        elif kind == 1:
+            pays.append(F.QuantParams(layout, "bf16", F.to_bf16(vec(1.0))))
+        elif kind == 2:
+            pays.append(F.QuantParams(layout, "q8", *F.quantize_int8(vec(2))))
+        else:
+            q, s = F.quantize_int8(vec(1e-3))
+            pays.append(F.QuantParams(layout, "q8", q, s, is_delta=True,
+                                      base=bases[kind - 3]))
+    pairs = [(p, 3.0 + i) for i, p in enumerate(pays)]
+    runs = len(K._launch_runs([p.tile_source() for p in pays]))
+    got = K.weighted_mean(pairs, layout, backend="torch", device=dev)
+    want = K.weighted_mean(pairs, layout, backend="numpy")
+    check(got.buf.tobytes() == want.buf.tobytes(),
+          "mixed round: deferred torch fold != numpy engine")
+    folds = {}
+    for backend in ("torch", "numpy"):
+        s = K.StreamingWeightedSum(layout, backend=backend, device=dev)
+        for p, w in pairs:
+            s.add(p, w)
+        folds[backend] = s.finalize()
+    check(folds["torch"].buf.tobytes() == folds["numpy"].buf.tobytes(),
+          "mixed round: streaming torch fold != numpy engine")
+    emit("mixed_round", clients=len(pays), params=n, launch_runs=runs,
+         bitwise=True)
+
+
 def phase_slice():
-    from repro_torch.fl import agg_kernels
     from repro_torch.kernels import agg_reduce
 
     out = {}
     agg_reduce.LAUNCHES["weighted_sum"] = 0
-    agg_kernels.NUMPY_FALLBACKS = 0
     for codec in ("flat", "bf16", "q8"):
         t0 = time.perf_counter()
         native = _history(codec, "torch", flare=False)
@@ -232,10 +278,7 @@ def phase_slice():
         out[codec] = {"losses": losses, "native_and_flare_s": t1 - t0}
     launches = agg_reduce.LAUNCHES["weighted_sum"]
     check(launches > 0, "the quickstart rounds launched no weighted_sum")
-    check(agg_kernels.NUMPY_FALLBACKS == 0,
-          f"numpy fallbacks on the slice: {agg_kernels.NUMPY_FALLBACKS}")
-    emit("slice", launches=launches,
-         numpy_fallbacks=agg_kernels.NUMPY_FALLBACKS, codecs=out)
+    emit("slice", launches=launches, codecs=out)
     return launches
 
 
@@ -288,7 +331,6 @@ def phase_fold(dev):
     weights /= weights.sum()
     report, kernel_row = {}, None
     agg_reduce.LAUNCHES["weighted_sum"] = 0
-    agg_kernels.NUMPY_FALLBACKS = 0
     for codec in ("flat", "q8"):
         frame, current, downlink = _frames(codec)
         row = {}
@@ -319,7 +361,7 @@ def phase_fold(dev):
         if src.base is not None:    # the host decode of the q8 downlink
             base_ms, _ = sync_ms(src.base.to_f64)
         h2d_ms, stack = sync_ms(lambda: agg_kernels._device_stack(
-            [src] * CLIENTS, dev))
+            [src] * CLIENTS, dev, {}))
         w = torch.from_numpy(weights).to(dev)
         args = dict(scales=stack["scales"], qchunk=stack["qchunk"],
                     base=stack["base"])
@@ -359,8 +401,6 @@ def phase_fold(dev):
                               shape=f"{CLIENTS}x{n} float32, no acc/base")
         del stack
         torch.cuda.empty_cache()
-    check(agg_kernels.NUMPY_FALLBACKS == 0,
-          f"numpy fallbacks in the fold: {agg_kernels.NUMPY_FALLBACKS}")
     emit("fold_50Mx16", params=n, clients=CLIENTS,
          launches=agg_reduce.LAUNCHES["weighted_sum"], codecs=report)
     return kernel_row
@@ -382,6 +422,7 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_env()
     max_diff = phase_kernel_vs_twin(dev)
+    phase_mixed_round(dev)
     launches = phase_slice()
     row = phase_fold(dev)
     print(json.dumps({"kernels": [{

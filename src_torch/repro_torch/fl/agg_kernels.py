@@ -54,16 +54,15 @@ The contract:
   folded in order); ``tests/test_torch_agg.py`` holds them to it across
   layouts, dtypes, codecs (0xF1/0xF2/0xF3 incl. int8 deltas) and client
   counts;
-- payload stacks the kernel cannot express fall back to numpy: non-float
-  domains (SecAgg uint64 shares), clients with heterogeneous
-  codecs/dtypes in one round, mismatched int8 scale windows, or delta
-  payloads with more than one distinct base.  Fallback is per-call, so a
-  single odd client never aborts a round, and every fallback is counted
-  in :data:`NUMPY_FALLBACKS`;
-- entry points whose kernels are not ported yet raise
-  ``NotImplementedError`` on the torch backend, naming their ROADMAP item,
-  and never run numpy silently: :func:`median`, :func:`trimmed_mean`,
-  :func:`krum_distances`, the sharded fold and the sparse fold.
+- the torch path never folds on the host.  A round whose clients differ
+  in codec, dtype, int8 scale window or delta base folds as one launch
+  per run of consecutive like clients, each run continuing the previous
+  one's accumulator (the numpy path's order, so still bitwise);
+- what has no kernel yet raises ``NotImplementedError`` on the torch
+  backend, naming its ROADMAP item, and never runs numpy silently:
+  integer-domain payloads (SecAgg's uint64 shares), :func:`median`,
+  :func:`trimmed_mean`, :func:`krum_distances`, the sharded fold and the
+  sparse fold.
 """
 from __future__ import annotations
 
@@ -88,10 +87,6 @@ _FLOATS = {"float16", "float32", "float64"}
 # ---------------------------------------------------------------------------
 BACKENDS = ("numpy", "torch")
 _DEFAULT_BACKEND: Optional[str] = None
-
-#: torch-backend folds that fell back to the numpy engine because the
-#: payload stack is one the kernel cannot express (module docstring)
-NUMPY_FALLBACKS = 0
 
 
 def default_backend() -> str:
@@ -121,11 +116,6 @@ def resolve_backend(backend: Optional[str]) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
     return backend
-
-
-def _count_fallback() -> None:
-    global NUMPY_FALLBACKS
-    NUMPY_FALLBACKS += 1
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -180,32 +170,49 @@ def resolve_shards(shards: Optional[int], mesh=None) -> int:
     return int(sizes.get("data", mesh.devices.size))
 
 
-def _sources(flats: Sequence) -> Optional[list]:
-    """Per-client :class:`~repro_torch.fl.flat.TileSource` adapters for a
-    stack the kernel can express, or ``None`` (numpy fallback)."""
-    sources = []
-    for fp in flats:
-        ts = getattr(fp, "tile_source", None)
-        src = ts() if ts is not None else None
-        if src is None:
-            return None
-        sources.append(src)
-    first = sources[0]
-    if any(s.kind != first.kind for s in sources):
-        return None
-    if len({id(s.base) for s in sources}) > 1:
-        return None
-    if first.kind == "q8":
-        if any(s.qchunk != first.qchunk for s in sources):
-            return None
-    elif any(s.data.dtype != first.data.dtype for s in sources):
-        return None
-    return sources
+def _tile(fp) -> TileSource:
+    """One payload's kernel operands (a :class:`~repro_torch.fl.flat
+    .TileSource`).  A payload the kernel cannot take raises: the torch
+    backend never folds on the host."""
+    if getattr(fp, "is_sparse", False):
+        raise _not_ported("the 0xF5 sparse fold", 8)
+    ts = getattr(fp, "tile_source", None)
+    if ts is None:
+        raise TypeError(
+            f"{type(fp).__name__} has no tile_source(): the torch backend "
+            "folds FlatParams and QuantParams payloads; use backend='numpy'")
+    src = ts()
+    if src is not None:
+        return src
+    if getattr(fp, "is_delta", False):
+        raise ValueError(
+            "delta-encoded payload needs its round base attached "
+            "(QuantParams.base) before it can be read")
+    raise _not_ported(f"folding {fp.layout.uniform_dtype} payloads (integer "
+                      "domains such as SecAgg's uint64 shares)", 9)
 
 
-def _device_stack(sources: Sequence, device, base=None) -> Dict[str, Any]:
+def _launch_runs(sources: Sequence[TileSource]) -> List[Tuple[int, int]]:
+    """``[lo, hi)`` runs of consecutive clients that one launch can fold:
+    the same codec, payload dtype, int8 scale window and delta base."""
+    runs, lo = [], 0
+    for i in range(1, len(sources)):
+        a, b = sources[lo], sources[i]
+        if not (a.kind == b.kind and a.data.dtype == b.data.dtype
+                and a.base is b.base
+                and (a.kind != "q8" or a.qchunk == b.qchunk)):
+            runs.append((lo, i))
+            lo = i
+    runs.append((lo, len(sources)))
+    return runs
+
+
+def _device_stack(sources: Sequence, device,
+                  base_memo: Dict[str, Any]) -> Dict[str, Any]:
     """Copy the client payloads straight into one (C, N) device tensor
-    (row by row: no host-side stack) plus the (C, S) int8 scales."""
+    (row by row: no host-side stack) plus the (C, S) int8 scales.  A delta
+    base goes to the device once: ``base_memo`` maps its
+    :func:`~repro_torch.fl.flat.memo_token` to the fp64 device copy."""
     from repro_torch.kernels import agg_reduce
 
     first = sources[0]
@@ -214,8 +221,13 @@ def _device_stack(sources: Sequence, device, base=None) -> Dict[str, Any]:
     if first.kind == "q8":
         scales = agg_reduce.stack_to_device([s.scales for s in sources],
                                             device)
-    if base is None and first.base is not None:
-        base = agg_reduce.to_device(first.base.to_f64(), device)
+    base = None
+    if first.base is not None:
+        tok = memo_token(first.base)
+        base = base_memo.get(tok)
+        if base is None:
+            base = base_memo[tok] = agg_reduce.to_device(
+                first.base.to_f64(), device)
     return {"data": data, "scales": scales,
             "qchunk": first.qchunk if first.kind == "q8" else 1,
             "base": base}
@@ -250,8 +262,9 @@ def weighted_mean(pairs: Sequence[Tuple[FlatParams, float]],
 
     Chunk-outer / client-inner: the fp64 accumulator chunk is reused across
     clients and cast straight into the output buffer, so no total-size fp64
-    array is ever materialized.  On the torch backend the whole (C, N)
-    stack goes to ``device`` and folds in one kernel launch.
+    array is ever materialized.  On the torch backend the (C, N) stack
+    goes to ``device`` and folds in one kernel launch (one per run of like
+    clients when the round mixes codecs, see :func:`_launch_runs`).
     """
     total_w = float(sum(w for _, w in pairs))
     scaled = [np.float64(w / total_w) for _, w in pairs]
@@ -264,16 +277,17 @@ def weighted_mean(pairs: Sequence[Tuple[FlatParams, float]],
         from repro_torch.kernels import agg_reduce
 
         dev = resolve_device(device)
-        sources = _sources([fp for fp, _ in pairs])
-        if sources is not None:
-            stack = _device_stack(sources, dev)
+        sources = [_tile(fp) for fp, _ in pairs]
+        w = agg_reduce.to_device(np.array(scaled, np.float64), dev)
+        vec, bases = None, {}
+        # the first run starts the sum from its first client's term, the
+        # rest continue it: the numpy loop's order below
+        for lo, hi in _launch_runs(sources):
+            stack = _device_stack(sources[lo:hi], dev, bases)
             vec = agg_reduce.weighted_sum(
-                stack["data"],
-                agg_reduce.to_device(np.array(scaled, np.float64), dev),
-                scales=stack["scales"], qchunk=stack["qchunk"],
-                base=stack["base"])
-            return _vec_to_flat(agg_reduce.to_host(vec), layout)
-        _count_fallback()
+                stack["data"], w[lo:hi], scales=stack["scales"],
+                qchunk=stack["qchunk"], base=stack["base"], acc=vec)
+        return _vec_to_flat(agg_reduce.to_host(vec), layout)
     uniform = layout.uniform_dtype in _FLOATS
     ovec = out.math_view() if uniform else np.empty(n, np.float64)
     acc = np.empty(CHUNK, np.float64)
@@ -419,9 +433,10 @@ class StreamingWeightedSum:
     ``f64_chunk`` (delta payloads reconstructed per arrival).  On the
     torch backend each arrival is one fused dequantize+scale+accumulate
     kernel launch, and the accumulator is **one fp64 tensor on the
-    device, kept for the whole round**; only an arrival the kernel cannot
-    express brings it back to the host (counted in
-    :data:`NUMPY_FALLBACKS`), and the next kernel arrival sends it back.
+    device, kept for the whole round** (zeros, as in the numpy path);
+    it comes back to the host once, at :meth:`finalize` or
+    :meth:`raw_sum`.  An arrival the kernel cannot take raises (see
+    :func:`_tile`).
 
     **Sharded (``shards=N`` or ``mesh=...``)** — numpy backend only (the
     torch backend raises; ROADMAP item 7).  The round's accumulator
@@ -470,8 +485,8 @@ class StreamingWeightedSum:
             from repro_torch.device import resolve_device
 
             self.device = resolve_device(device)
-        # torch backend: the device-resident accumulator (None while the
-        # accumulator lives on the host in ``_acc``)
+        # torch backend: the device-resident accumulator (None once it is
+        # brought back to the host into ``_acc``)
         self._dacc = None
         # deferred delta bases: token -> [base object, summed weight].
         # Sharded dense deltas and sparse deltas (both modes) fold
@@ -487,6 +502,13 @@ class StreamingWeightedSum:
                              else _host_cores() > 1))
             self._pipe = _DecodePipeline(self._bounds) if use_pipe else None
             self._acc = None
+        elif self.backend == "torch":
+            import torch
+
+            self._acc = None
+            self._dacc = torch.zeros(layout.total_size, dtype=torch.float64,
+                                     device=self.device)
+            self._pipe = None
         else:
             self._acc = np.zeros(layout.total_size, np.float64)
             self._pipe = None
@@ -505,20 +527,18 @@ class StreamingWeightedSum:
             self.total_w += float(w)
             self.count += 1
             return
-        if self.backend == "torch" and self.layout.total_size:
-            if self._add_torch(fp, w):
-                self.total_w += float(w)
-                self.count += 1
-                return
-            _count_fallback()
         sw = np.float64(w)
         n = self.layout.total_size
-        acc = self._acc_vec()
-        for lo in range(0, n, CHUNK):
-            hi = min(lo + CHUNK, n)
-            x = fp.f64_chunk(lo, hi, self._tmp)
-            np.multiply(x, sw, out=self._scratch[:hi - lo])
-            acc[lo:hi] += self._scratch[:hi - lo]
+        if self.backend == "torch":
+            if n:
+                self._fold_torch(_tile(fp), sw)
+        else:
+            acc = self._acc_vec()
+            for lo in range(0, n, CHUNK):
+                hi = min(lo + CHUNK, n)
+                x = fp.f64_chunk(lo, hi, self._tmp)
+                np.multiply(x, sw, out=self._scratch[:hi - lo])
+                acc[lo:hi] += self._scratch[:hi - lo]
         self.total_w += float(w)
         self.count += 1
 
@@ -549,8 +569,9 @@ class StreamingWeightedSum:
                         x = ps.decode_chunk(a, b, self._tmp)
                         np.multiply(x, sw, out=self._scratch[:b - a])
                         acc[a - lo:b - lo] += self._scratch[:b - a]
-        elif self.backend == "torch" and self.layout.total_size:
-            self._fold_torch(TileSource("float", ps.data), sw)
+        elif self.backend == "torch":
+            if self.layout.total_size:
+                self._fold_torch(TileSource("float", ps.data), sw)
         else:
             acc = self._acc_vec()
             n = self.layout.total_size
@@ -661,9 +682,9 @@ class StreamingWeightedSum:
 
     # ------------------------------------------------- single-host mode
     def _acc_vec(self) -> np.ndarray:
-        """The single-host accumulator on the host; a live device
-        accumulator is brought back and retired first (the path of an
-        arrival the kernel cannot express, and of finalize)."""
+        """The single-host accumulator on the host; on the torch backend
+        the device accumulator is brought back and retired first (at
+        finalize or raw_sum, which end the fold)."""
         if self._dacc is not None:
             from repro_torch.kernels import agg_reduce
 
@@ -671,29 +692,13 @@ class StreamingWeightedSum:
             self._dacc = None
         return self._acc
 
-    def _add_torch(self, fp, w: float) -> bool:
-        ts = getattr(fp, "tile_source", None)
-        src = ts() if ts is not None else None
-        if src is None:
-            return False
-        self._fold_torch(src, np.float64(w))
-        return True
-
     def _fold_torch(self, src, w: np.float64) -> None:
         """One kernel launch: ``acc + w * decode(src)`` on the device."""
         from repro_torch.kernels import agg_reduce
 
-        base = None
-        if src.base is not None:
-            tok = memo_token(src.base)
-            base = self._base_memo.get(tok)
-            if base is None:
-                base = self._base_memo[tok] = agg_reduce.to_device(
-                    src.base.to_f64(), self.device)
-        stack = _device_stack([src], self.device, base=base)
         if self._dacc is None:
-            self._dacc = agg_reduce.to_device(self._acc, self.device)
-            self._acc = None
+            raise RuntimeError("the fold has ended (finalize/raw_sum)")
+        stack = _device_stack([src], self.device, self._base_memo)
         self._dacc = agg_reduce.weighted_sum(
             stack["data"],
             agg_reduce.to_device(np.array([w], np.float64), self.device),

@@ -314,9 +314,9 @@ class FlatParams:
 
     def tile_source(self, lo: int = 0,
                     hi: Optional[int] = None) -> Optional["TileSource"]:
-        """Adapter for the torch aggregation backend; ``None`` when this
-        payload must stay on the numpy kernels (integer domains, e.g.
-        SecAgg's uint64 shares).
+        """Adapter for the torch aggregation backend; ``None`` when the
+        kernel cannot take this payload (integer domains, e.g. SecAgg's
+        uint64 shares), which that backend then refuses.
 
         ``(lo, hi)`` selects an element range — the shard-aware slicing
         the mesh-sharded accumulator uses to hand each shard's column
@@ -577,14 +577,14 @@ class QuantParams:
                     hi: Optional[int] = None) -> Optional[TileSource]:
         """Adapter for the torch aggregation backend: the still-compressed
         wire arrays, so the dequantize stays fused in the kernel.  A delta
-        payload whose base is not attached yet returns ``None`` — the
-        numpy path then raises its explanatory error.
+        payload whose base is not attached yet returns ``None``, and the
+        fold raises its explanatory error.
 
         ``(lo, hi)`` selects an element range (shard-aware slicing, all
         zero-copy views).  For int8 payloads ``lo`` must sit on a scale-
         window boundary — :func:`repro_torch.fl.agg_kernels.shard_bounds` aligns
         shard edges to ``qchunk`` exactly so this holds; a misaligned
-        range returns ``None`` (numpy fallback) rather than mis-scaling.
+        range returns ``None`` rather than mis-scaling.
         """
         if hi is None:
             hi = self.layout.total_size

