@@ -73,10 +73,13 @@ def run_hierarchical(server_app: ServerApp,
     threads), so the root server folds **O(num_edges)** payloads per
     round instead of O(len(sites)).  With a weighted-sum strategy the
     sync result continues the flat fold's arithmetic exactly — see
-    :class:`~repro_torch.core.superlink.EdgeAggregatorApp`."""
+    :class:`~repro_torch.core.superlink.EdgeAggregatorApp`.  The edges fold
+    with the server app's ``agg_backend`` on its ``agg_device``."""
     link = SuperLink()
     apps = {s: client_app_fn(s) for s in sites}
-    edges = make_edge_tier(link, apps, num_edges, timeout=edge_timeout)
+    cfg = server_app.config
+    edges = make_edge_tier(link, apps, num_edges, timeout=edge_timeout,
+                           backend=cfg.agg_backend, device=cfg.agg_device)
     try:
         driver = SuperLinkDriver(link, expected_nodes=num_edges)
         return server_app.run(driver)

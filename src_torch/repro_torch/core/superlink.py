@@ -571,14 +571,19 @@ class EdgeAggregatorApp:
     - get_parameters: first child success (probed one at a time).
 
     A nested edge below this one is folded via ``add_partial`` — tiers
-    compose.
+    compose.  ``backend`` and ``device`` choose where the edge folds, as
+    ``ServerConfig.agg_backend`` / ``agg_device`` do for the root (None:
+    the process default backend, and the CUDA card).
     """
 
     def __init__(self, child_driver: Driver, edge_id: str = "edge",
-                 timeout: float = 60.0):
+                 timeout: float = 60.0, backend: Optional[str] = None,
+                 device=None):
         self.driver = child_driver
         self.edge_id = edge_id
         self.timeout = timeout
+        self.backend = backend
+        self.device = device
 
     # ------------------------------------------------------------ dispatch
     def handle(self, task_ins_bytes: bytes, cid: str = "0") -> bytes:
@@ -645,7 +650,8 @@ class EdgeAggregatorApp:
             if res.partial is not None:
                 ps = res.partial       # nested edge: continue its sum
                 if acc is None:
-                    acc = kernels.StreamingWeightedSum(ps.layout)
+                    acc = kernels.StreamingWeightedSum(
+                        ps.layout, self.backend, self.device)
                 acc.add_partial(ps)
                 node_ids.extend(ps.node_ids)
                 failures.extend(ps.failures)
@@ -666,7 +672,8 @@ class EdgeAggregatorApp:
                 sp.base = base
             fp = _flat_of(res)
             if acc is None:
-                acc = kernels.StreamingWeightedSum(fp.layout)
+                acc = kernels.StreamingWeightedSum(fp.layout, self.backend,
+                                                   self.device)
             acc.add(fp, float(res.num_examples))
             node_ids.append(node)
         if want_partial:
@@ -742,13 +749,14 @@ class EdgeAggregatorApp:
 
 
 def make_edge_tier(link: SuperLink, apps: Dict[str, ClientApp],
-                   num_edges: int, timeout: float = 60.0
+                   num_edges: int, timeout: float = 60.0,
+                   backend: Optional[str] = None, device=None
                    ) -> List[SuperNode]:
     """Partition ``apps`` into ``num_edges`` contiguous (sorted) groups,
     give each group an :class:`InlineFleetDriver` child fleet wrapped in
-    an :class:`EdgeAggregatorApp`, and mount the edges as SuperNodes on
-    ``link`` (ids ``edge-0 .. edge-{n-1}``).  Returns the started nodes;
-    the caller stops them."""
+    an :class:`EdgeAggregatorApp` folding with ``backend`` on ``device``,
+    and mount the edges as SuperNodes on ``link`` (ids ``edge-0 ..
+    edge-{n-1}``).  Returns the started nodes; the caller stops them."""
     names = sorted(apps)
     if not 1 <= num_edges <= len(names):
         raise ValueError(f"num_edges must be in [1, {len(names)}], "
@@ -759,7 +767,8 @@ def make_edge_tier(link: SuperLink, apps: Dict[str, ClientApp],
         hi = (e + 1) * len(names) // num_edges
         child = InlineFleetDriver({n: apps[n] for n in names[lo:hi]})
         app = EdgeAggregatorApp(child, edge_id=f"edge-{e}",
-                                timeout=timeout)
+                                timeout=timeout, backend=backend,
+                                device=device)
         sn = SuperNode(f"edge-{e}", app, NativeConnection(link))
         sn.start()
         edges.append(sn)

@@ -47,22 +47,26 @@ The contract:
 - the numpy path is the reference, carried over verbatim from the JAX
   package's engine; its arithmetic is frozen (the fig. 5 bitwise-repro
   claim rides on it);
-- the torch path folds on the given device through
-  :func:`repro_torch.kernels.agg_reduce.weighted_sum`: the hand-written
-  CUDA kernel for a CUDA device, its plain PyTorch twin for the CPU.  Both
-  are **bitwise** equal to the numpy path (no FMA contraction, clients
-  folded in order); ``tests/test_torch_agg.py`` holds them to it across
-  layouts, dtypes, codecs (0xF1/0xF2/0xF3 incl. int8 deltas) and client
-  counts;
-- the torch path never folds on the host.  A round whose clients differ
+- the torch path reduces on the given device through the hand-written
+  CUDA kernels of :mod:`repro_torch.kernels.agg_reduce` for a CUDA device,
+  their plain PyTorch twins for the CPU: ``weighted_sum`` (weighted mean,
+  streaming fold), ``sort_reduce`` (median, trimmed mean) and ``gram``
+  (Krum's distances).  The first two are **bitwise** equal to the numpy
+  path (no FMA contraction, clients or sorted rows added in order, numpy's
+  +0.0 start of a sum); ``tests/test_torch_agg.py`` and
+  ``tests/test_torch_robust.py`` hold them to it across layouts, dtypes,
+  codecs (0xF1/0xF2/0xF3 incl. int8 deltas) and client counts.  Krum's
+  distances match to a tolerance and its selection exactly;
+- the torch path never reduces on the host.  A round whose clients differ
   in codec, dtype, int8 scale window or delta base folds as one launch
   per run of consecutive like clients, each run continuing the previous
-  one's accumulator (the numpy path's order, so still bitwise);
+  one's accumulator (the numpy path's order, so still bitwise); the
+  robust reductions need the whole stack in one launch and raise on such
+  a round instead (ROADMAP queue 1, item 17);
 - what has no kernel yet raises ``NotImplementedError`` on the torch
   backend, naming its ROADMAP item, and never runs numpy silently:
-  integer-domain payloads (SecAgg's uint64 shares), :func:`median`,
-  :func:`trimmed_mean`, :func:`krum_distances`, the sharded fold and the
-  sparse fold.
+  integer-domain payloads (SecAgg's uint64 shares), the sharded fold and
+  the sparse fold.
 """
 from __future__ import annotations
 
@@ -795,23 +799,55 @@ def _rowstack(flats: Sequence[FlatParams], lo: int, hi: int,
     return tile
 
 
+def _robust_stack(flats: Sequence, what: str, device) -> Dict[str, Any]:
+    """The whole round's (C, N) stack on the device, for a reduction that
+    needs every client in one launch.  A round that :func:`_launch_runs`
+    would split raises: the torch backend never reduces on the host."""
+    from repro_torch.device import resolve_device
+
+    sources = [_tile(fp) for fp in flats]
+    if len(_launch_runs(sources)) > 1:
+        raise _not_ported(
+            f"{what} over a round whose clients differ in codec, payload "
+            "dtype, delta base or int8 scale window", 17)
+    return _device_stack(sources, resolve_device(device), {})
+
+
+def _sort_reduce(flats, what: str, trim_k: int, device) -> np.ndarray:
+    from repro_torch.kernels import agg_reduce
+
+    s = _robust_stack(flats, what, device)
+    vec = agg_reduce.sort_reduce(
+        s["data"], kind="median" if what == "median" else "trim_sum",
+        trim_k=trim_k, scales=s["scales"], qchunk=s["qchunk"],
+        base=s["base"])
+    return agg_reduce.to_host(vec)
+
+
 def median(flats: Sequence[FlatParams], layout: Layout,
-           backend: Optional[str] = None) -> FlatParams:
-    """Coordinate-wise median, chunk-stacked (numpy backend only until the
-    ``sort_reduce`` kernel is ported, ROADMAP item 7)."""
-    if resolve_backend(backend) == "torch":
-        raise _not_ported("median", 7)
+           backend: Optional[str] = None, device=None) -> FlatParams:
+    """Coordinate-wise median, chunk-stacked; on the torch backend one
+    ``sort_reduce`` launch over the round's stack on ``device``."""
+    if layout.total_size and flats and resolve_backend(backend) == "torch":
+        return _vec_to_flat(_sort_reduce(flats, "median", 0, device),
+                            layout)
     return _coordinatewise(flats, layout,
                            lambda t: np.median(t, axis=0, overwrite_input=True))
 
 
 def trimmed_mean(flats: Sequence[FlatParams], layout: Layout,
-                 k: int, backend: Optional[str] = None) -> FlatParams:
+                 k: int, backend: Optional[str] = None,
+                 device=None) -> FlatParams:
     """Mean after trimming the k smallest/largest values per coordinate
-    (numpy backend only until ``sort_reduce`` is ported, ROADMAP item 7)."""
-    if resolve_backend(backend) == "torch":
-        raise _not_ported("trimmed_mean", 7)
+    (all values when ``n <= 2k``).  On the torch backend one
+    ``sort_reduce`` launch gives the trimmed sum, and the host divides it
+    by the row count as ``np.mean`` does."""
     n = len(flats)
+    if layout.total_size and flats and resolve_backend(backend) == "torch":
+        k_eff = k if n > 2 * k else 0
+        vec = _sort_reduce(flats, "trimmed_mean", k_eff, device)
+        vec /= n - 2 * k_eff
+        return _vec_to_flat(vec, layout)
 
     def reduce(tile: np.ndarray) -> np.ndarray:
         tile.sort(axis=0)
@@ -838,7 +874,8 @@ def _coordinatewise(flats, layout, reduce_fn) -> FlatParams:
 
 
 def krum_distances(flats: Sequence[FlatParams], layout: Layout,
-                   backend: Optional[str] = None) -> np.ndarray:
+                   backend: Optional[str] = None,
+                   device=None) -> np.ndarray:
     """(n, n) matrix of pairwise squared L2 distances.
 
     Accumulates the Gram matrix G += X_c X_c^T one (n, CHUNK) fp64 tile at
@@ -847,22 +884,33 @@ def krum_distances(flats: Sequence[FlatParams], layout: Layout,
     translation-invariant, and removing the large common component (late
     rounds: client updates nearly identical, norms huge) keeps the
     expansion from cancelling catastrophically.  Clamped at zero for the
-    residual rounding.  Numpy backend only until the ``gram`` kernel is
-    ported (ROADMAP item 7).
+    residual rounding.  On the torch backend one ``gram`` launch over the
+    round's stack on ``device`` gives G, and the host expands it.
     """
-    if resolve_backend(backend) == "torch":
-        raise _not_ported("krum_distances", 7)
     n_clients = len(flats)
-    G = np.zeros((n_clients, n_clients), np.float64)
-    m = np.empty((n_clients, CHUNK), np.float64)
-    ref = np.empty(CHUNK, np.float64)
-    total = layout.total_size
-    for lo in range(0, total, CHUNK):
-        hi = min(lo + CHUNK, total)
-        tile = _rowstack(flats, lo, hi, m)
-        np.copyto(ref[:hi - lo], tile[0])
-        tile -= ref[:hi - lo]
-        G += tile @ tile.T
+    if layout.total_size and flats and resolve_backend(backend) == "torch":
+        from repro_torch.kernels import agg_reduce
+
+        s = _robust_stack(flats, "krum_distances", device)
+        G = agg_reduce.to_host(agg_reduce.gram(
+            s["data"], scales=s["scales"], qchunk=s["qchunk"],
+            base=s["base"]))
+    else:
+        G = np.zeros((n_clients, n_clients), np.float64)
+        m = np.empty((n_clients, CHUNK), np.float64)
+        ref = np.empty(CHUNK, np.float64)
+        total = layout.total_size
+        for lo in range(0, total, CHUNK):
+            hi = min(lo + CHUNK, total)
+            tile = _rowstack(flats, lo, hi, m)
+            np.copyto(ref[:hi - lo], tile[0])
+            tile -= ref[:hi - lo]
+            G += tile @ tile.T
+    return gram_to_distances(G)
+
+
+def gram_to_distances(G: np.ndarray) -> np.ndarray:
+    """||a-b||^2 = G_aa + G_bb - 2 G_ab, clamped at zero."""
     sq = np.diag(G).copy()
     D = sq[:, None] + sq[None, :] - 2.0 * G
     np.maximum(D, 0.0, out=D)

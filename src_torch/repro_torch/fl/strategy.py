@@ -574,7 +574,8 @@ class _StackedStrategyMixin:
 @dataclass
 class FedMedian(_StackedStrategyMixin, FedAvg):
     def _aggregate_flats(self, rnd, flats, weights, failures, nodes=None):
-        out = kernels.median(flats, flats[0].layout, backend=self.backend)
+        out = kernels.median(flats, flats[0].layout, backend=self.backend,
+                             device=self.device)
         return out.to_arrays(), {"num_clients": len(flats)}
 
 
@@ -585,7 +586,7 @@ class FedTrimmedMean(_StackedStrategyMixin, FedAvg):
     def _aggregate_flats(self, rnd, flats, weights, failures, nodes=None):
         k = int(self.beta * len(flats))
         out = kernels.trimmed_mean(flats, flats[0].layout, k,
-                                   backend=self.backend)
+                                   backend=self.backend, device=self.device)
         return out.to_arrays(), {"num_clients": len(flats),
                                  "trimmed_each_end": k}
 
@@ -608,7 +609,8 @@ class Krum(_StackedStrategyMixin, FedAvg):
 
     def _aggregate_flats(self, rnd, flats, weights, failures, nodes=None):
         layout = flats[0].layout
-        D = kernels.krum_distances(flats, layout, backend=self.backend)
+        D = kernels.krum_distances(flats, layout, backend=self.backend,
+                                   device=self.device)
         scores = kernels.krum_scores(D, self.num_byzantine)
         chosen = np.argsort(scores)[: max(self.num_selected, 1)]
         sel = [(flats[i], weights[i]) for i in chosen]

@@ -1,8 +1,9 @@
 """Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes one shared
-library, ``build/lib<name>-<hash>.so``, where the hash covers the source
-and the flags; a library already built for the same source is reused.  The
+library, ``build/lib<name>-<hash>.so``, where the hash covers the source,
+the shared headers ``csrc/*.cuh`` and the flags; a library already built
+for the same source is reused.  The
 build runs at first use, on the machine with the card; nothing here runs
 at import time, so the package imports where there is no ``nvcc``.
 
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -51,26 +52,47 @@ def nvcc() -> str:
                        "built on the machine with the card")
 
 
+def _target(name: str) -> Path:
+    """``build/lib<name>-<hash>.so``; the hash covers the source, every
+    shared header in ``csrc/`` and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Sequence[str]) -> List[Path]:
+    """The shared libraries of ``csrc/<name>.cu`` for each name, compiled
+    unless current ones exist: one ``nvcc`` per source, all started
+    together.  Raises with the compiler's output when one fails."""
+    targets = [_target(n) for n in names]
+    jobs = []
+    for name, target in zip(names, targets):
+        if target.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, target, tmp, proc))
+    failed = []
+    for name, target, tmp, proc in jobs:
+        BUILD_LOG[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n"
+                          f"{BUILD_LOG[name]}")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return targets
+
+
 def build(name: str) -> Path:
-    """The shared library of ``csrc/<name>.cu``, compiled unless a current
-    one exists.  Raises with the compiler's output when ``nvcc`` fails."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    target = BUILD_DIR / f"lib{name}-{h}.so"
-    if target.exists():
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    BUILD_LOG[name] = proc.stdout
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
-                           f"{proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, target)
-    return target
+    """The shared library of ``csrc/<name>.cu`` (see :func:`build_all`)."""
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

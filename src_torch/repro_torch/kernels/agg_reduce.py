@@ -1,28 +1,41 @@
-"""The server's aggregation fold as a hand-written Hopper kernel.
+"""The server's aggregation reductions as hand-written Hopper kernels.
 
-:func:`weighted_sum` computes ``(acc +) sum_c w[c] * decode(data[c])`` in
-fp64 over a (clients, N) payload stack — FedAvg's weighted sum and the
-streaming arrival-order fold.  It replaces the Pallas TPU kernel
-``repro/kernels/agg_reduce.py:200`` (``weighted_sum``); the CUDA source,
-with its note on what bounds it and how, is ``csrc/weighted_sum.cu``.
+Three kernels over a (clients, N) payload stack, each replacing a Pallas
+TPU kernel of ``repro/kernels/agg_reduce.py``; each CUDA source carries
+its note on what bounds it and how:
+
+- :func:`weighted_sum` (``csrc/weighted_sum.cu``, replaces ``:200``):
+  ``(acc +) sum_c w[c] * decode(data[c])`` in fp64 — FedAvg's weighted
+  sum, the streaming arrival-order fold and Krum's final mean.
+- :func:`sort_reduce` (``csrc/sort_reduce.cu``, replaces ``:283``): per
+  column, the median of the C decoded values, or the sum of the sorted
+  rows ``[trim_k, C - trim_k)`` (FedMedian, FedTrimmedMean; the caller
+  divides).
+- :func:`gram` (``csrc/gram.cu``, replaces ``:339``): Krum's (C, C) fp64
+  Gram matrix of the stack centred on row 0.
+
+For each:
 
 - On a CUDA tensor the wrapper launches the kernel (built by ``nvcc`` for
   ``sm_90a`` at first use, see :mod:`repro_torch.kernels._build`) or
   raises.  It never falls back.
-- On a CPU tensor it runs :func:`weighted_sum_plain`, the plain PyTorch
-  twin with the same arithmetic.
-- Both are **bitwise** equal to the numpy engine
-  (:mod:`repro_torch.fl.agg_kernels`, ``backend="numpy"``): int8 payloads
-  dequantize as ``f64(f32(q * scale))``, every other float widens
-  exactly, a delta payload adds its fp64 base, then each client's term is
-  multiplied by its weight and added, one rounding per operation, clients
-  in order.  That is why the twin is written as separate ops: a fused
-  ``acc.add_(t, alpha=w)`` or ``torch.addcmul`` runs ``a + w*b`` inside one
-  CUDA kernel compiled with FMA contraction, and would no longer round
-  like numpy.
+- On a CPU tensor it runs the plain PyTorch twin (``*_plain``).
+- ``weighted_sum`` and ``sort_reduce`` are **bitwise** equal to the numpy
+  engine (:mod:`repro_torch.fl.agg_kernels`, ``backend="numpy"``): int8
+  payloads dequantize as ``f64(f32(q * scale))``, every other float
+  widens exactly, a delta payload adds its fp64 base, one rounding per
+  operation, clients (or sorted rows) in order.  That is why the twins are
+  written as separate ops: a fused ``acc.add_(t, alpha=w)`` or
+  ``torch.addcmul`` runs ``a + w*b`` inside one CUDA kernel compiled with
+  FMA contraction, and would no longer round like numpy.  ``gram`` is held
+  to a tolerance (its products are FMAs, summed in another order than
+  numpy's dgemm), and is bitwise equal to itself from run to run.
+- Outputs that are NaN are the canonical quiet NaN (``float("nan")``), in
+  the kernels and the twins alike.
 
 Payload dtypes: ``torch.int8`` (with ``scales`` (C, ceil(N/qchunk)) fp32),
 ``torch.float16``, ``torch.bfloat16``, ``torch.float32``, ``torch.float64``.
+``sort_reduce`` and ``gram`` take 1 to :data:`MAX_CLIENTS` clients.
 """
 from __future__ import annotations
 
@@ -37,8 +50,15 @@ from repro_torch.fl.flat import is_bf16
 
 DEFAULT_QCHUNK = 1024
 
+#: most clients ``sort_reduce`` and ``gram`` take (their kernels keep a
+#: column's C values in registers, and C(C+1)/2 Gram pairs per block);
+#: lifting it is ROADMAP queue 2
+MAX_CLIENTS = 64
+
 #: kernel launches per wrapper; the main path's runs read these
-LAUNCHES = {"weighted_sum": 0}
+LAUNCHES = {"weighted_sum": 0, "sort_reduce": 0, "gram": 0}
+
+_NAN = float("nan")
 
 _KIND = {torch.int8: 0, torch.float16: 1, torch.bfloat16: 2,
          torch.float32: 3, torch.float64: 4}
@@ -85,7 +105,7 @@ def stack_to_device(rows: Sequence[np.ndarray], device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the plain twin
+# the plain twins
 # ---------------------------------------------------------------------------
 def _decode_plain(row: torch.Tensor, srow: Optional[torch.Tensor],
                   qchunk: int) -> torch.Tensor:
@@ -93,6 +113,17 @@ def _decode_plain(row: torch.Tensor, srow: Optional[torch.Tensor],
         s = srow.repeat_interleave(qchunk)[:row.numel()]
         return (row.to(torch.float32) * s).to(torch.float64)
     return row.to(torch.float64)
+
+
+def _decoded_plain(data: torch.Tensor, scales: Optional[torch.Tensor],
+                   qchunk: int, base: Optional[torch.Tensor]) -> torch.Tensor:
+    """The (C, N) fp64 decoded stack (delta base added)."""
+    rows = []
+    for c in range(data.shape[0]):
+        v = _decode_plain(data[c], None if scales is None else scales[c],
+                          qchunk)
+        rows.append(v if base is None else v + base)
+    return torch.stack(rows)
 
 
 def weighted_sum_plain(data: torch.Tensor, weights: torch.Tensor, *,
@@ -112,8 +143,47 @@ def weighted_sum_plain(data: torch.Tensor, weights: torch.Tensor, *,
     return a.clone() if a is acc else a
 
 
+def sort_reduce_plain(data: torch.Tensor, *, kind: str = "median",
+                      trim_k: int = 0,
+                      scales: Optional[torch.Tensor] = None,
+                      qchunk: int = DEFAULT_QCHUNK,
+                      base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel's arithmetic in eager PyTorch: sort each column (NaNs
+    last), then add the chosen sorted rows to ``+0.0`` one at a time
+    (numpy's reduction: its identity first, rows in order)."""
+    c = data.shape[0]
+    s = torch.sort(_decoded_plain(data, scales, qchunk, base), dim=0).values
+    a = torch.zeros(data.shape[1], dtype=torch.float64, device=data.device)
+    if kind == "median":
+        lo, hi = (c - 1) // 2, c // 2
+        a = a + s[lo]
+        if hi != lo:
+            a = (a + s[hi]) / 2.0
+        a = torch.where(torch.isnan(s[c - 1]), _NAN, a)
+    else:
+        for r in range(trim_k, c - trim_k):
+            a = a + s[r]
+    return torch.where(torch.isnan(a), _NAN, a)
+
+
+def gram_plain(data: torch.Tensor, *, scales: Optional[torch.Tensor] = None,
+               qchunk: int = DEFAULT_QCHUNK,
+               base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The (C, C) Gram matrix of the stack centred on row 0, as
+    elementwise products and sums in eager PyTorch, one row at a time
+    (no matrix product)."""
+    x = _decoded_plain(data, scales, qchunk, base)
+    t = x - x[0]
+    del x
+    g = torch.empty((data.shape[0],) * 2, dtype=torch.float64,
+                    device=data.device)
+    for a in range(data.shape[0]):
+        g[a] = (t[a] * t).sum(dim=1)
+    return g
+
+
 # ---------------------------------------------------------------------------
-# the wrapper
+# the wrappers
 # ---------------------------------------------------------------------------
 def _check(t: Optional[torch.Tensor], name: str, shape, dtype,
            device: torch.device) -> None:
@@ -130,8 +200,56 @@ def _check(t: Optional[torch.Tensor], name: str, shape, dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_stack(data: torch.Tensor, scales: Optional[torch.Tensor],
+                 qchunk: int, base: Optional[torch.Tensor]):
+    """The operand checks all three kernels share; returns (C, N)."""
+    if data.dim() != 2:
+        raise ValueError(f"data must be (C, N), got shape {tuple(data.shape)}")
+    if data.dtype not in _KIND:
+        raise TypeError(f"unsupported payload dtype {data.dtype}")
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
+    c, n = data.shape
+    q8 = data.dtype == torch.int8
+    if q8 and (scales is None or qchunk < 1):
+        raise ValueError("int8 payloads need scales and qchunk >= 1")
+    if not q8 and scales is not None:
+        raise ValueError("scales are only for int8 payloads")
+    if scales is not None:
+        _check(scales, "scales", (c, -(-n // qchunk)), torch.float32,
+               data.device)
+    _check(base, "base", (n,), torch.float64, data.device)
+    return c, n
+
+
+def _check_clients(c: int, what: str) -> None:
+    if not 1 <= c <= MAX_CLIENTS:
+        raise ValueError(
+            f"{what} takes 1 to {MAX_CLIENTS} clients (the kernel's cap, "
+            f"MAX_CLIENTS; lifting it is ROADMAP.md queue 2), got {c}")
+
+
+def _on_cuda(dev: torch.device, what: str) -> bool:
+    """False for the CPU (the twin runs); True for CUDA; raises else."""
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {dev}")
+    return True
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _nscales(scales: Optional[torch.Tensor]) -> int:
+    return 0 if scales is None else scales.shape[1]
+
+
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
 
 
 def weighted_sum(data: torch.Tensor, weights: torch.Tensor, *,
@@ -147,56 +265,112 @@ def weighted_sum(data: torch.Tensor, weights: torch.Tensor, *,
     ``acc``: (N,) fp64 running accumulator the C rows fold into.  All on
     one device.  Returns a new (N,) fp64 tensor.
     """
-    if data.dim() != 2:
-        raise ValueError(f"data must be (C, N), got shape {tuple(data.shape)}")
-    if data.dtype not in _KIND:
-        raise TypeError(f"unsupported payload dtype {data.dtype}")
-    if not data.is_contiguous():
-        raise ValueError("data must be contiguous")
-    c, n = data.shape
+    c, n = _check_stack(data, scales, qchunk, base)
     dev = data.device
-    q8 = data.dtype == torch.int8
-    if q8 and (scales is None or qchunk < 1):
-        raise ValueError("int8 payloads need scales and qchunk >= 1")
-    if not q8 and scales is not None:
-        raise ValueError("scales are only for int8 payloads")
     _check(weights, "weights", (c,), torch.float64, dev)
-    _check(scales, "scales", (c, -(-n // qchunk)), torch.float32, dev)
-    _check(base, "base", (n,), torch.float64, dev)
     _check(acc, "acc", (n,), torch.float64, dev)
     if c == 0 and acc is None:
         raise ValueError("an empty stack needs an accumulator")
-    if dev.type == "cpu":
+    if not _on_cuda(dev, "weighted_sum"):
         return weighted_sum_plain(data, weights, scales=scales,
                                   qchunk=qchunk, base=base, acc=acc)
-    if dev.type != "cuda":
-        raise ValueError(f"weighted_sum runs on cuda or cpu, not {dev}")
     if n == 0 or c == 0:
         return acc.clone() if acc is not None else \
             torch.empty(0, dtype=torch.float64, device=dev)
-    lib = _kernel_lib()
+    lib = _kernel_lib("weighted_sum")
     out = torch.empty(n, dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_weighted_sum(
             _KIND[data.dtype], data.data_ptr(), _ptr(scales), int(qchunk),
-            0 if scales is None else scales.shape[1], _ptr(base), _ptr(acc),
-            weights.data_ptr(), out.data_ptr(), c, n, stream)
-    if err != 0:
-        raise RuntimeError(f"weighted_sum kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["weighted_sum"] += 1
+            _nscales(scales), _ptr(base), _ptr(acc), weights.data_ptr(),
+            out.data_ptr(), c, n, stream)
+    _launched("weighted_sum", err)
     return out
 
 
-def _kernel_lib() -> ctypes.CDLL:
+def sort_reduce(data: torch.Tensor, *, kind: str = "median",
+                trim_k: int = 0, scales: Optional[torch.Tensor] = None,
+                qchunk: int = DEFAULT_QCHUNK,
+                base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per column of the decoded (C, N) stack: ``kind="median"`` gives the
+    median (NaN where the column holds a NaN); ``kind="trim_sum"`` gives
+    the SUM of the sorted rows ``[trim_k, C - trim_k)``, which the caller
+    divides by ``C - 2*trim_k`` (numpy's mean: sum, then one divide).
+    Operands as for :func:`weighted_sum`.  Returns a new (N,) fp64
+    tensor."""
+    c, n = _check_stack(data, scales, qchunk, base)
+    _check_clients(c, "sort_reduce")
+    if kind not in ("median", "trim_sum"):
+        raise ValueError(f"kind must be 'median' or 'trim_sum', got {kind!r}")
+    if kind == "trim_sum" and not (trim_k >= 0 and c - 2 * trim_k >= 1):
+        raise ValueError(f"trim_k={trim_k} leaves no row of {c}")
+    dev = data.device
+    if not _on_cuda(dev, "sort_reduce"):
+        return sort_reduce_plain(data, kind=kind, trim_k=trim_k,
+                                 scales=scales, qchunk=qchunk, base=base)
+    out = torch.empty(n, dtype=torch.float64, device=dev)
+    if n == 0:
+        return out
+    lib = _kernel_lib("sort_reduce")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_sort_reduce(
+            _KIND[data.dtype], data.data_ptr(), _ptr(scales), int(qchunk),
+            _nscales(scales), _ptr(base), out.data_ptr(), c, n,
+            int(kind == "median"), int(trim_k), stream)
+    _launched("sort_reduce", err)
+    return out
+
+
+def gram(data: torch.Tensor, *, scales: Optional[torch.Tensor] = None,
+         qchunk: int = DEFAULT_QCHUNK,
+         base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(C, C) fp64 Gram matrix of the decoded stack centred on row 0,
+    ``t = x - x[0]``, ``G = t @ t.T`` (Krum's distances come from it).
+    Operands as for :func:`weighted_sum`.  The kernel sums in a fixed
+    order: the same input gives the same bits on every run."""
+    c, n = _check_stack(data, scales, qchunk, base)
+    _check_clients(c, "gram")
+    dev = data.device
+    if not _on_cuda(dev, "gram"):
+        return gram_plain(data, scales=scales, qchunk=qchunk, base=base)
+    if n == 0:
+        return torch.zeros((c, c), dtype=torch.float64, device=dev)
+    lib = _kernel_lib("gram")
+    out = torch.empty((c, c), dtype=torch.float64, device=dev)
+    partial = torch.empty((lib.repro_gram_blocks(n), c * (c + 1) // 2),
+                          dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_gram(
+            _KIND[data.dtype], data.data_ptr(), _ptr(scales), int(qchunk),
+            _nscales(scales), _ptr(base), partial.data_ptr(),
+            out.data_ptr(), c, n, stream)
+    _launched("gram", err)
+    return out
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: C signature of each library's entry points: name -> (argtypes, restype)
+_SIGNATURES = {
+    "weighted_sum": {"repro_weighted_sum": (
+        [_I, _P, _P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P], _I)},
+    "sort_reduce": {"repro_sort_reduce": (
+        [_I, _P, _P, _LL, _LL, _P, _P, _LL, _LL, _I, _LL, _P], _I)},
+    "gram": {"repro_gram": (
+        [_I, _P, _P, _LL, _LL, _P, _P, _P, _LL, _LL, _P], _I),
+        "repro_gram_blocks": ([_LL], _LL)},
+}
+
+
+def _kernel_lib(name: str) -> ctypes.CDLL:
     from repro_torch.kernels import _build
 
-    lib = _build.load("weighted_sum")
-    fn = lib.repro_weighted_sum
-    if fn.argtypes is None:
-        p, i64 = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [ctypes.c_int, p, p, i64, i64, p, p, p, p, i64, i64,
-                       p]
-        fn.restype = ctypes.c_int
+    lib = _build.load(name)
+    for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.restype = restype
+            fn.argtypes = argtypes
     return lib

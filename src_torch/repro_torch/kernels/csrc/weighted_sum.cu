@@ -35,33 +35,18 @@
 // work: the round's fold is bound by the host-to-device copy, not by this
 // kernel.
 #include <cstdint>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "decode.cuh"
 
 namespace {
 
-enum Kind { kInt8 = 0, kF16 = 1, kBF16 = 2, kF32 = 3, kF64 = 4 };
-
-template <int KIND>
-__device__ __forceinline__ double decode(const void* __restrict__ data,
-                                         int64_t idx,
-                                         const float* __restrict__ scales,
-                                         int64_t sidx) {
-  if constexpr (KIND == kInt8) {
-    const float q = static_cast<float>(static_cast<const int8_t*>(data)[idx]);
-    return static_cast<double>(__fmul_rn(q, scales[sidx]));
-  } else if constexpr (KIND == kF16) {
-    return static_cast<double>(
-        __half2float(static_cast<const __half*>(data)[idx]));
-  } else if constexpr (KIND == kBF16) {
-    const unsigned int u = static_cast<const unsigned short*>(data)[idx];
-    return static_cast<double>(__uint_as_float(u << 16));
-  } else if constexpr (KIND == kF32) {
-    return static_cast<double>(static_cast<const float*>(data)[idx]);
-  } else {
-    return static_cast<const double*>(data)[idx];
-  }
-}
+using repro::decode;
+using repro::kBF16;
+using repro::kF16;
+using repro::kF32;
+using repro::kF64;
+using repro::kInt8;
 
 template <int KIND, bool HAS_BASE, bool HAS_ACC>
 __global__ void weighted_sum_kernel(const void* __restrict__ data,

@@ -299,15 +299,26 @@ def test_sharded_numpy_fold_matches_reference():
 # unported entry points raise on the torch backend
 # ---------------------------------------------------------------------------
 def test_unported_entry_points_raise_on_torch_backend():
+    """The sharded fold (item 7) and the 0xF5 sparse fold (item 8) have no
+    kernel yet: the torch backend raises for both, naming the item."""
     rl, ref, tl, port = make_payloads("odd_f32", "flat", 3, seed=70)
-    for fn, args in ((TK.median, (port, tl)),
-                     (TK.trimmed_mean, (port, tl, 1)),
-                     (TK.krum_distances, (port, tl))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(*args, backend="torch")
-        fn(*args, backend="numpy")                 # still runs on numpy
     with pytest.raises(NotImplementedError, match="item 7"):
         TK.StreamingWeightedSum(tl, backend="torch", device="cpu", shards=2)
+    TK.StreamingWeightedSum(tl, backend="numpy", shards=2)  # numpy still runs
     s = TK.StreamingWeightedSum(tl, backend="torch", device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         s.add_sparse(object(), 1.0)
+
+
+@pytest.mark.parametrize("what", ["median", "trimmed_mean", "krum"])
+def test_robust_reductions_raise_on_a_mixed_run_stack(what):
+    """Median, trimmed mean and Krum need the round in one launch: a round
+    that mixes codecs or bases raises on the torch backend (ROADMAP item
+    17) and never reduces on the host; the numpy backend still runs it."""
+    rl, ref, tl, port = _mixed_round()
+    fn, args = {"median": (TK.median, ()),
+                "trimmed_mean": (TK.trimmed_mean, (1,)),
+                "krum": (TK.krum_distances, ())}[what]
+    with pytest.raises(NotImplementedError, match="item 17"):
+        fn(port, tl, *args, backend="torch", device="cpu")
+    fn(port, tl, *args, backend="numpy")

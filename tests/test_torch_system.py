@@ -117,16 +117,18 @@ def test_round_losses_match_the_reference(codec):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
 
 
-def test_edge_tier_ignores_agg_device(monkeypatch):
-    """Known fault (ROADMAP queue 3): the edge tier builds its accumulators
-    with the default backend and device, not the ServerConfig's, so on a
-    host without CUDA ``run_hierarchical`` fails even with
-    ``agg_device="cpu"``.  The edge tier is queue 1, item 9."""
+def test_edge_tier_honours_agg_device(monkeypatch):
+    """The edge tier folds with the ServerConfig's backend and device: on
+    a host without CUDA, ``run_hierarchical`` with ``agg_device="cpu"``
+    runs, and one edge over the whole fleet continues the flat low-memory
+    fold exactly (``acc = 0 + 1.0 * S``, one divide by W)."""
     import torch
 
     from repro_torch.core import run_hierarchical
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        run_hierarchical(_server_app(rounds=1), _clients, SITES, num_edges=2,
-                         edge_timeout=20)
+    flat = run_native(_server_app(low_memory=True), _clients, SITES)
+    hier = run_hierarchical(_server_app(low_memory=True), _clients, SITES,
+                            num_edges=1, edge_timeout=20)
+    _assert_same_history(hier, flat)
+    assert [r.metrics["num_payloads"] for r in hier.rounds] == [1, 1]
