@@ -5,21 +5,25 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from the sources in the checkout
-(``weighted_sum``, ``sort_reduce``, ``gram``: one ``nvcc`` each, all
-started together), holds each kernel against its plain PyTorch twin on
-the card, folds a round that mixes codecs and bases against the numpy
-engine, drives the two main paths -- the quickstart FedAvg round (slice 1)
-and the quickstart with the robust strategies FedMedian, FedTrimmedMean
-and Krum on five sites (slice 2), each natively and as a FLARE job,
-clients fitting on the card and the server reducing with the kernels --
-folds a 50M-parameter x 16-client round at the benchmark's geometry
-(FedAvg, then median, trimmed mean and Krum on distinct payloads), and
+(``weighted_sum``, ``sort_reduce``, ``gram``, ``flash_attention``: one
+``nvcc`` each, all started together), holds each kernel against its plain
+PyTorch twin on the card, folds a round that mixes codecs and bases
+against the numpy engine, drives the three main paths -- the quickstart
+FedAvg round (slice 1) and the quickstart with the robust strategies
+FedMedian, FedTrimmedMean and Krum on five sites (slice 2), each natively
+and as a FLARE job, clients fitting on the card and the server reducing
+with the kernels, and H2O-Danube-1.8B at full width and depth serving 4
+requests of 4500 prompt tokens and 32 new tokens with flash attention in
+every layer's prefill, against the same model on the eager attention path
+(slice 3) -- folds a 50M-parameter x 16-client round at the benchmark's
+geometry (FedAvg, then median, trimmed mean and Krum on distinct
+payloads), times the flash kernel at the serving layer's shape, and
 prints one JSON line per phase.  The line before the last is the
 ``kernels`` line; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check raises and the script exits non-zero.  It imports nothing of
-JAX or of the JAX package: every parity check is against the plain twins
-and the port's own numpy engine.  It exits non-zero when CUDA is not
-available.
+JAX or of the JAX package: every parity check is against the plain twins,
+the port's own numpy engine and the port's full-matrix attention oracle.
+It exits non-zero when CUDA is not available.
 """
 import os
 import sys
@@ -44,7 +48,12 @@ sys.path.insert(0, os.path.join(HERE, "src_torch"))
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
 FP64_TENSOR_FLOPS = 67e12
-KERNELS = ("weighted_sum", "sort_reduce", "gram")
+#: bf16 in the tensor cores (dense) and fp32 outside them: attention's bound
+#: and the least time of a kernel on the fp32 CUDA cores
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
+AGG_KERNELS = ("weighted_sum", "sort_reduce", "gram")
+KERNELS = AGG_KERNELS + ("flash_attention",)
 
 SITES = ["site-1", "site-2", "site-3"]
 #: the robust quickstart: five sites, so that FedTrimmedMean(beta=0.2) trims
@@ -458,7 +467,7 @@ def phase_robust_slice():
     from repro_torch.kernels import agg_reduce
 
     out = {}
-    for k in KERNELS:
+    for k in AGG_KERNELS:
         agg_reduce.LAUNCHES[k] = 0
     for name in ("fedmedian", "fedtrimmedmean", "krum"):
         for codec in ("flat", "bf16", "q8"):
@@ -484,7 +493,7 @@ def phase_robust_slice():
             if name == "krum":
                 row["krum_selected"] = [m["krum_selected"] for m in metrics]
             out[tag] = row
-    launches = {k: agg_reduce.LAUNCHES[k] for k in KERNELS}
+    launches = {k: agg_reduce.LAUNCHES[k] for k in AGG_KERNELS}
     check(launches["sort_reduce"] > 0 and launches["gram"] > 0,
           f"the robust quickstart launched no sort_reduce/gram: {launches}")
     emit("robust_slice", sites=len(ROBUST_SITES), launches=launches,
@@ -786,6 +795,255 @@ def phase_robust_fold(dev):
         "gram": dict(flat["gram"], shape=shape)}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: flash attention, the kernel against its twin (slice 3)
+# ---------------------------------------------------------------------------
+#: assert_allclose tolerances (rtol = atol), as tests/test_kernels.py holds
+#: the reference's Pallas kernel
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: the largest fp32 score matrix the full-matrix oracle may build
+REF_SCORE_BYTES = 2 * 2 ** 30
+#: the serving shape: H2O-Danube-1.8B's attention at 4 x 4500 tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4500, 32
+FLASH_SERVE = dict(B=SERVE_BATCH, S=SERVE_PROMPT, H=32, KV=8, hd=80,
+                   window=4096, causal=True)
+
+
+def _flash_inputs(gen, B, S, H, KV, hd, dtype, dev):
+    q = torch.randn((B, S, H, hd), generator=gen, device=dev) / hd ** 0.5
+    k = torch.randn((B, S, KV, hd), generator=gen, device=dev)
+    v = torch.randn((B, S, KV, hd), generator=gen, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _excess(got, want, tol: float):
+    """(max |got - want|, max |got - want| / (tol + tol * |want|)): the
+    second is <= 1 exactly when assert_allclose(rtol=atol=tol) passes."""
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), float((d / (tol + tol * want.float().abs())).max())
+
+
+def _flash_cases():
+    grid = []
+    for S in (64, 509):
+        for B in (1, 4):
+            for H, KV in ((4, 4), (8, 2), (32, 8)):
+                for hd in (64, 80, 128):
+                    for window in (0, 16, 4096):
+                        for causal in (True, False):
+                            grid.append((B, S, H, KV, hd, window, causal))
+    big = [(1, 4, 4), (1, 8, 2), (4, 32, 8)]
+    i = 0
+    for hd in (64, 80, 128):
+        for window in (0, 16, 4096):
+            for causal in (True, False):
+                B, H, KV = big[i % 3]
+                grid.append((B, SERVE_PROMPT, H, KV, hd, window, causal))
+                i += 1
+    f = FLASH_SERVE
+    grid.append((f["B"], f["S"], f["H"], f["KV"], f["hd"], f["window"],
+                 f["causal"]))
+    return grid
+
+
+def phase_flash_vs_twin(dev):
+    """``flash_attention`` against its plain twin (every case) and the
+    full-matrix oracle ``flash_attention_ref`` (where its (S, S) scores fit
+    in REF_SCORE_BYTES), in fp32 and bf16, over B x S x (H, KV) x hd x
+    window x causal, S = 4500 (padded to 4608 by the reference's block rule)
+    included, and a case with fully masked rows (window < 0)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1303)
+    worst = {str(dt): {"twin_max_abs": 0.0, "ref_max_abs": 0.0,
+                       "twin_excess": 0.0, "ref_excess": 0.0, "tol": tol}
+             for dt, tol in FLASH_TOL.items()}
+    cases = ref_cases = 0
+    for B, S, H, KV, hd, window, causal in _flash_cases():
+        for dtype, tol in FLASH_TOL.items():
+            q, k, v = _flash_inputs(gen, B, S, H, KV, hd, dtype, dev)
+            got = FA.flash_attention(q, k, v, causal=causal, window=window)
+            twin = FA.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+            torch.cuda.synchronize()
+            tag = f"B{B} S{S} H{H}/{KV} hd{hd} w{window} c{int(causal)} {dtype}"
+            check(got.dtype == dtype and got.shape == q.shape,
+                  f"flash {tag}: {got.dtype} {tuple(got.shape)}")
+            w = worst[str(dtype)]
+            err, exc = _excess(got, twin, tol)
+            check(exc <= 1.0, f"flash {tag}: |kernel - twin| = {err}")
+            w["twin_max_abs"] = max(w["twin_max_abs"], err)
+            w["twin_excess"] = max(w["twin_excess"], exc)
+            if B * H * S * S * 4 <= REF_SCORE_BYTES:
+                want = flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+                err, exc = _excess(got, want, tol)
+                check(exc <= 1.0, f"flash {tag}: |kernel - ref| = {err}")
+                w["ref_max_abs"] = max(w["ref_max_abs"], err)
+                w["ref_excess"] = max(w["ref_excess"], exc)
+                ref_cases += 1
+                del want
+            cases += 1
+            del q, k, v, got, twin
+    # fully masked rows: key kp is visible from qp only when kp > qp + 445,
+    # so rows 63.. of S = 509 see no key and must be exactly 0
+    masked = 0
+    for dtype, tol in FLASH_TOL.items():
+        q, k, v = _flash_inputs(gen, 2, 509, 8, 2, 80, dtype, dev)
+        got = FA.flash_attention(q, k, v, causal=False, window=-445)
+        twin = FA.flash_attention_plain(q, k, v, causal=False, window=-445)
+        err, exc = _excess(got, twin, tol)
+        check(exc <= 1.0, f"flash fully-masked rows {dtype}: {err}")
+        check(bool((got[:, 63:] == 0).all()) and bool((got[:, :63] != 0).any()),
+              f"flash fully-masked rows {dtype}: masked rows are not 0")
+        masked += 1
+    emit("flash_vs_twin", cases=cases, ref_cases=ref_cases,
+         fully_masked_cases=masked, worst=worst)
+    return max(w["twin_max_abs"] for w in worst.values())
+
+
+def band_pairs(S: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the masks leave visible over one (batch, head)."""
+    qp = np.arange(S, dtype=np.int64)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros_like(qp)
+    hi = qp if causal else np.full_like(qp, S - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bound(B, S, H, KV, hd, window, causal, itemsize: int):
+    """(ms, bound_by, fp32-core ms) for one ``flash_attention`` launch:
+    q, k, v read once and o written once against HBM, or 4 * hd flops per
+    visible (q, k) pair against the bf16 tensor cores (989 TFLOP/s); the
+    third is the same flops against the fp32 CUDA cores (67 TFLOP/s), the
+    least time a kernel on those cores could take."""
+    flops = 4 * hd * B * H * band_pairs(S, causal, window)
+    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * itemsize
+    ms, by = _bound(nbytes, flops, BF16_TENSOR_FLOPS)
+    return ms, by, flops / FP32_FLOPS * 1e3, flops
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the slice at full width -- serve H2O-Danube-1.8B (slice 3)
+# ---------------------------------------------------------------------------
+#: assert_allclose tolerance (rtol = atol) of the last-position prefill
+#: logits of impl="flash" against impl="eager", both in bf16: the two
+#: differ in how the softmax weights are rounded (fp32 in the kernel, bf16
+#: before the value product in the eager path), as the tests' 5e-2 for bf16
+SERVE_TOL = 5e-2
+
+
+def phase_serve(dev, card: str):
+    """Slice 3's main path: H2O-Danube-1.8B at full width and depth, random
+    weights from seed 0, 4 requests of 4500 prompt tokens and 32 new tokens
+    through ``launch.serve.serve`` with impl="flash" (the kernel in every
+    layer's prefill), then the same weights and prompt with impl="eager"."""
+    from repro_torch.config import get_model_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.base import iter_leaves
+
+    cfg = get_model_config("h2o-danube-1.8b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int64)
+    FA.LAUNCHES["flash_attention"] = 0
+    flash = serve(cfg, params, tokens, new_tokens=SERVE_NEW, impl="flash",
+                  device=dev)
+    launches = FA.LAUNCHES["flash_attention"]
+    peak_flash = torch.cuda.max_memory_allocated()
+    check(launches == cfg.num_layers,
+          f"serve: {launches} flash launches, want {cfg.num_layers}")
+    torch.cuda.reset_peak_memory_stats()
+    eager = serve(cfg, params, tokens, new_tokens=SERVE_NEW, impl="eager",
+                  device=dev)
+    peak_eager = torch.cuda.max_memory_allocated()
+    check(FA.LAUNCHES["flash_attention"] == launches,
+          "serve: impl='eager' launched the flash kernel")
+    for name, r in (("flash", flash), ("eager", eager)):
+        check(r.finite, f"serve {name}: non-finite logits")
+        check(tuple(r.ids.shape) == (SERVE_BATCH, SERVE_NEW),
+              f"serve {name}: ids {tuple(r.ids.shape)}")
+    lf, le = flash.prefill_logits, eager.prefill_logits
+    err, exc = _excess(lf, le, SERVE_TOL)
+    check(exc <= 1.0, f"serve: prefill logits flash vs eager |d| = {err}")
+    agree = float((flash.ids == eager.ids).float().mean())
+    emit("serve", card=card, arch=cfg.name, params=n_params, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.resolved_head_dim, window=cfg.window,
+         batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
+         flash_launches=launches, init_s=init_s,
+         prefill_ms={"flash": flash.prefill_s * 1e3,
+                     "eager": eager.prefill_s * 1e3},
+         decode_ms_per_token={
+             "flash": flash.decode_s * 1e3 / (SERVE_NEW - 1),
+             "eager": eager.decode_s * 1e3 / (SERVE_NEW - 1)},
+         peak_mem_gb={"flash": peak_flash / 1e9, "eager": peak_eager / 1e9},
+         logits_max_abs_diff=err, logits_tol=SERVE_TOL, logits_excess=exc,
+         logits_max_abs=float(le[:, :cfg.vocab_size].abs().max()),
+         ids_agree=agree,
+         ids_flash=flash.ids.tolist(), ids_eager=eager.ids.tolist())
+    del params, flash, eager
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_flash_timing(dev, card: str):
+    """The kernel per launch at the serving layer's shape, by CUDA events,
+    beside its bound, its twin and the library yardstick
+    ``scaled_dot_product_attention`` (enable_gqa, the same boolean causal +
+    window mask; timed only, never on the port's path)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    f = FLASH_SERVE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4500)
+    q, k, v = _flash_inputs(gen, f["B"], f["S"], f["H"], f["KV"], f["hd"],
+                            torch.bfloat16, dev)
+    args = dict(causal=f["causal"], window=f["window"])
+    got = FA.flash_attention(q, k, v, **args)
+    twin = FA.flash_attention_plain(q, k, v, **args)
+    err, exc = _excess(got, twin, FLASH_TOL[torch.bfloat16])
+    check(exc <= 1.0, f"flash at the serving shape: |kernel - twin| = {err}")
+    kernel_ms = event_ms(lambda: FA.flash_attention(q, k, v, **args))
+    plain_ms = event_ms(lambda: FA.flash_attention_plain(q, k, v, **args),
+                        reps=2)
+    S = f["S"]
+    qpos = torch.arange(S, device=dev)[:, None]
+    kpos = torch.arange(S, device=dev)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - f["window"])
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, scale=1.0, enable_gqa=True)
+    # the yardstick's kernels need not be deterministic: they are timed only
+    torch.use_deterministic_algorithms(False)
+    try:
+        lib = sdpa().transpose(1, 2)
+        library_ms = event_ms(sdpa)
+    finally:
+        torch.use_deterministic_algorithms(True)
+    lib_err = float((lib.float() - twin.float()).abs().max())
+    bound_ms, bound_by, fp32_ms, flops = flash_bound(
+        f["B"], S, f["H"], f["KV"], f["hd"], f["window"], f["causal"], 2)
+    shape = (f"B{f['B']} S{S} H{f['H']}/KV{f['KV']} hd{f['hd']} "
+             f"window {f['window']} causal, bf16")
+    emit("flash_timing", card=card, shape=shape, kernel_ms=kernel_ms,
+         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+         bound_by=bound_by, fp32_core_bound_ms=fp32_ms, gflop=flops / 1e9,
+         kernel_tflops=flops / kernel_ms / 1e9, max_abs_diff=err,
+         library_max_abs_diff_vs_twin=lib_err)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, shape=shape,
+                max_abs_diff=err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -800,15 +1058,18 @@ def main() -> int:
     # extra write pass in each timed launch that the port does not need
     torch.utils.deterministic.fill_uninitialized_memory = False
     dev = torch.device("cuda")
-    phase_env()
+    card = phase_env()
     max_diff = phase_kernel_vs_twin(dev)
     sort_diff = phase_sort_vs_twin(dev)
     gram_diff = phase_gram_vs_twin(dev)
+    flash_diff = phase_flash_vs_twin(dev)
     phase_mixed_round(dev)
     launches = phase_slice()
     robust_launches = phase_robust_slice()
     row = phase_fold(dev)
     robust = phase_robust_fold(dev)
+    flash_launches = phase_serve(dev, card)
+    flash = phase_flash_timing(dev, card)
     src = "src_torch/repro_torch/kernels/csrc/"
     lines = [
         dict(name="weighted_sum", source=src + "weighted_sum.cu",
@@ -823,6 +1084,11 @@ def main() -> int:
              launches=robust_launches["gram"],
              **dict(robust["gram"], max_abs_diff=max(
                  gram_diff, robust["gram"]["max_abs_diff"]))),
+        dict(name="flash_attention", source=src + "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:94",
+             launches=flash_launches,
+             **dict(flash, max_abs_diff=max(flash_diff,
+                                            flash["max_abs_diff"]))),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "max_abs_diff", "ms", "plain_ms", "bound_ms", "bound_by",

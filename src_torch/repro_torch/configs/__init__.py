@@ -1,0 +1,7 @@
+"""Architecture registry of the port -- one module per architecture.
+
+Importing this package populates ``repro_torch.config.ARCH_REGISTRY`` /
+``SMOKE_REGISTRY``.  Only the families the port runs are registered; the
+others come with their families (ROADMAP queue 1, item 11).
+"""
+from repro_torch.configs import h2o_danube_1_8b  # noqa: F401

@@ -7,9 +7,12 @@ for the same source is reused.  The
 build runs at first use, on the machine with the card; nothing here runs
 at import time, so the package imports where there is no ``nvcc``.
 
-Flags: ``sm_90a`` (Hopper), ``-fmad=false`` and no ``--use_fast_math``
-(the aggregation kernels must round every product and sum on its own and
-keep subnormals: they are held bitwise against the numpy engine).
+Flags (:func:`flags`): every source builds for ``sm_90a`` (Hopper) without
+``--use_fast_math`` (subnormals are kept, divides and ``exp2f`` are the
+accurate ones).  The aggregation kernels also take ``-fmad=false``: they
+must round every product and sum on its own, because they are held bitwise
+against the numpy engine.  ``flash_attention`` is held to a tolerance, so
+it lets ``nvcc`` contract a multiply and an add into one FMA.
 """
 from __future__ import annotations
 
@@ -20,14 +23,20 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+#: flags each source adds to :data:`NVCC_FLAGS`; every source is listed
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "weighted_sum": ("-fmad=false",),
+    "sort_reduce": ("-fmad=false",),
+    "gram": ("-fmad=false",),
+    "flash_attention": (),
+}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -52,10 +61,17 @@ def nvcc() -> str:
                        "built on the machine with the card")
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """The ``nvcc`` flags ``csrc/<name>.cu`` is built with."""
+    if name not in SOURCE_FLAGS:
+        raise KeyError(f"no build flags for kernel source {name!r}")
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
 def _target(name: str) -> Path:
     """``build/lib<name>-<hash>.so``; the hash covers the source, every
-    shared header in ``csrc/`` and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    shared header in ``csrc/`` and the source's flags."""
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.name.encode() + hdr.read_bytes())
@@ -74,7 +90,7 @@ def build_all(names: Sequence[str]) -> List[Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, target, tmp, proc))
     failed = []

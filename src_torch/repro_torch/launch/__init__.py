@@ -1,0 +1,1 @@
+"""Launchers of the port (port of ``repro/launch``): the serving launcher."""

@@ -1,0 +1,108 @@
+"""Unified model facade (port of ``repro/models/api.py``).
+
+``build_model(cfg)`` returns a :class:`Model`:
+
+    params = model.init(seed, device=None)      # None means the CUDA card
+    logits, _, metrics = model.apply(params, batch, mode="train")
+    cache = model.init_cache(batch_size, max_len)
+    logits, cache, _ = model.apply(params, batch, mode="decode", cache=cache)
+
+``batch`` is a dict: tokens, labels, and (per family) extra_embeds.
+Parameters are nested dicts of tensors with the reference's keys and
+shapes; :func:`params_from_reference` carries the reference's parameters
+across and :func:`to_arrays` carries them back.  Encoder-decoder models
+are ROADMAP queue 1, item 11: they raise.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.base import init_params
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def _decoder_only(self) -> None:
+        if self.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                "encoder-decoder models are not ported yet: ROADMAP queue 1, "
+                "item 11")
+
+    # ------------------------------------------------------------- params
+    def param_specs(self):
+        self._decoder_only()
+        return transformer.param_specs(self.cfg)
+
+    def init(self, seed: int, device: DeviceLike = None):
+        """Random parameters from ``seed`` on ``device`` (None: the card;
+        raises without one)."""
+        dev = resolve_device(device)
+        return init_params(self.param_specs(), seed, self.cfg.param_dtype,
+                           dev)
+
+    # ------------------------------------------------------------- forward
+    def apply(self, params, batch: Dict[str, Any], *, mode: str,
+              cache: Optional[Dict] = None, impl: str = "eager",
+              prefill_max_len: Optional[int] = None,
+              last_logit_only: bool = False):
+        self._decoder_only()
+        dev = params["embed"].device
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        extra = batch.get("extra_embeds")
+        if extra is not None:
+            extra = torch.as_tensor(extra, device=dev)
+        return transformer.forward(params, self.cfg, tokens, mode=mode,
+                                   cache=cache, extra_embeds=extra,
+                                   impl=impl, prefill_max_len=prefill_max_len,
+                                   last_logit_only=last_logit_only)
+
+    def init_cache(self, batch: int, max_len: int, device: DeviceLike = None):
+        self._decoder_only()
+        return transformer.init_cache(self.cfg, batch, max_len,
+                                      resolve_device(device))
+
+    # ------------------------------------------------------------- inputs
+    def batch_keys(self, kind: str) -> Tuple[str, ...]:
+        keys = ["tokens"]
+        if kind == "train":
+            keys.append("labels")
+        if self.cfg.frontend == "vision" and kind != "decode":
+            keys.append("extra_embeds")
+        if self.cfg.is_encoder_decoder and kind != "decode":
+            keys.append("audio_embeds")
+        return tuple(keys)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)
+
+
+def params_from_reference(arrays, device: DeviceLike = None):
+    """The port's parameter tree from the reference's, given as nested dicts
+    of numpy arrays (``jax.tree.map(np.asarray, params)``): same keys, same
+    shapes, fp32 tensors on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+
+    def conv(a):
+        if isinstance(a, dict):
+            return {k: conv(v) for k, v in a.items()}
+        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(dev)
+
+    return conv(arrays)
+
+
+def to_arrays(params):
+    """The parameter tree as nested dicts of host fp32 numpy arrays, in the
+    reference's keys and layout."""
+    if isinstance(params, dict):
+        return {k: to_arrays(v) for k, v in params.items()}
+    return params.detach().float().cpu().numpy().copy()

@@ -1,0 +1,89 @@
+"""Where the serving path's time goes on the card: H2O-Danube-1.8B at full
+width, 4 requests x 4500 prompt tokens, seed 0.
+
+Times two prefills and a few decode steps on the host clock (each ending
+in a device sync; the first of each is the warm-up), decode steps with
+PyTorch's deterministic mode off as well, then prints
+``torch.profiler`` tables (device and host time by op) for two decode
+steps and one prefill.  Run from the root of a checkout on a machine with
+one NVIDIA H100:
+
+    python3 src_torch/tools/profile_serve.py
+"""
+import os
+import sys
+import time
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
+from repro_torch.config import get_model_config  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.train.steps import make_decode_step, make_prefill_step  # noqa: E402
+
+BATCH, PROMPT, NEW = 4, 4500, 32
+
+
+def _ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _table(prof, key: str) -> str:
+    return prof.key_averages().table(sort_by=key, row_limit=25)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_serve: needs a CUDA card", file=sys.stderr)
+        return 2
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    dev = torch.device("cuda")
+    cfg = get_model_config("h2o-danube-1.8b")
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT))).to(dev)
+    prefill = make_prefill_step(model, max_len=PROMPT + NEW, impl="flash")
+    decode = make_decode_step(model, impl="flash")
+    for _ in range(2):
+        ms, (last, cache) = _ms(lambda: prefill(params, {"tokens": tokens}))
+        print("prefill ms", ms, flush=True)
+    tok = torch.argmax(last, -1)[:, None]
+    for deterministic in (True, False):
+        torch.use_deterministic_algorithms(deterministic)
+        steps = []
+        for _ in range(5):
+            ms, (last, cache) = _ms(lambda: decode(params, cache, tok))
+            steps.append(ms)
+        print(f"decode ms per step (deterministic={deterministic})", steps,
+              flush=True)
+    torch.use_deterministic_algorithms(True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            last, cache = decode(params, cache, tok)
+        torch.cuda.synchronize()
+    print("two decode steps", flush=True)
+    print(_table(prof, "cuda_time_total"), flush=True)
+    print(_table(prof, "cpu_time_total"), flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    print("one prefill", flush=True)
+    print(_table(prof, "cuda_time_total"), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
