@@ -5,20 +5,25 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from the sources in the checkout
-(``weighted_sum``, ``sort_reduce``, ``gram``, ``flash_attention``: one
-``nvcc`` each, all started together), holds each kernel against its plain
-PyTorch twin on the card, folds a round that mixes codecs and bases
-against the numpy engine, drives the three main paths -- the quickstart
+(``weighted_sum``, ``sort_reduce``, ``gram``, ``flash_attention``,
+``rglru_scan``: one ``nvcc`` each, all started together), holds each
+kernel against its plain PyTorch twin on the card (``rglru_scan``
+bitwise), folds a round that mixes codecs and bases against the numpy
+engine, drives the four main paths -- the quickstart
 FedAvg round (slice 1) and the quickstart with the robust strategies
 FedMedian, FedTrimmedMean and Krum on five sites (slice 2), each natively
 and as a FLARE job, clients fitting on the card and the server reducing
 with the kernels, and H2O-Danube-1.8B at full width and depth serving 4
 requests of 4500 prompt tokens and 32 new tokens with flash attention in
 every layer's prefill, against the same model on the eager attention path
-(slice 3) -- folds a 50M-parameter x 16-client round at the benchmark's
+(slice 3), and RecurrentGemma-2B at full width and depth serving 4
+requests of 4096 prompt tokens and 32 new tokens with the ``rglru_scan``
+kernel in its 18 RG-LRU layers and the flash kernel at head dim 256 in
+its 8 local-attention layers, against the same model on the eager paths
+(slice 4) -- folds a 50M-parameter x 16-client round at the benchmark's
 geometry (FedAvg, then median, trimmed mean and Krum on distinct
-payloads), times the flash kernel at the serving layer's shape, and
-prints one JSON line per phase.  The line before the last is the
+payloads), times the flash kernel at both serving layers' shapes and
+``rglru_scan`` at RecurrentGemma's, and prints one JSON line per phase.  The line before the last is the
 ``kernels`` line; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check raises and the script exits non-zero.  It imports nothing of
 JAX or of the JAX package: every parity check is against the plain twins,
@@ -53,7 +58,7 @@ FP64_TENSOR_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
 AGG_KERNELS = ("weighted_sum", "sort_reduce", "gram")
-KERNELS = AGG_KERNELS + ("flash_attention",)
+KERNELS = AGG_KERNELS + ("flash_attention", "rglru_scan")
 
 SITES = ["site-1", "site-2", "site-3"]
 #: the robust quickstart: five sites, so that FedTrimmedMean(beta=0.2) trims
@@ -807,6 +812,12 @@ REF_SCORE_BYTES = 2 * 2 ** 30
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4500, 32
 FLASH_SERVE = dict(B=SERVE_BATCH, S=SERVE_PROMPT, H=32, KV=8, hd=80,
                    window=4096, causal=True)
+#: RecurrentGemma-2B's serving shape: 4 x 4096 tokens, so that the prompt
+#: is over the 2048 window; its local attention and its RG-LRU recurrence
+RG_BATCH, RG_PROMPT, RG_NEW = 4, 4096, 32
+FLASH_SERVE_RG = dict(B=RG_BATCH, S=RG_PROMPT, H=10, KV=1, hd=256,
+                      window=2048, causal=True)
+RGLRU_SERVE = dict(B=RG_BATCH, S=RG_PROMPT, W=2560)
 
 
 def _flash_inputs(gen, B, S, H, KV, hd, dtype, dev):
@@ -840,9 +851,16 @@ def _flash_cases():
                 B, H, KV = big[i % 3]
                 grid.append((B, SERVE_PROMPT, H, KV, hd, window, causal))
                 i += 1
-    f = FLASH_SERVE
-    grid.append((f["B"], f["S"], f["H"], f["KV"], f["hd"], f["window"],
-                 f["causal"]))
+    # head dim 256 (RecurrentGemma's local attention: MQA, window 2048),
+    # causal, up to its serving length
+    for S in (64, 509, 4096):
+        B = 2 if S < 4096 else 1
+        for H, KV in ((10, 1), (4, 1), (8, 2)):
+            for window in (0, 16, 2048):
+                grid.append((B, S, H, KV, 256, window, True))
+    for f in (FLASH_SERVE, FLASH_SERVE_RG):
+        grid.append((f["B"], f["S"], f["H"], f["KV"], f["hd"], f["window"],
+                     f["causal"]))
     return grid
 
 
@@ -851,7 +869,8 @@ def phase_flash_vs_twin(dev):
     full-matrix oracle ``flash_attention_ref`` (where its (S, S) scores fit
     in REF_SCORE_BYTES), in fp32 and bf16, over B x S x (H, KV) x hd x
     window x causal, S = 4500 (padded to 4608 by the reference's block rule)
-    included, and a case with fully masked rows (window < 0)."""
+    included, head dim 256 (MQA and GQA, windows up to 2048, S up to
+    4096), and a case with fully masked rows (window < 0)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.ref import flash_attention_ref
 
@@ -930,7 +949,9 @@ def flash_bound(B, S, H, KV, hd, window, causal, itemsize: int):
 #: assert_allclose tolerance (rtol = atol) of the last-position prefill
 #: logits of impl="flash" against impl="eager", both in bf16: the two
 #: differ in how the softmax weights are rounded (fp32 in the kernel, bf16
-#: before the value product in the eager path), as the tests' 5e-2 for bf16
+#: before the value product in the eager path), as the tests' 5e-2 for bf16.
+#: RecurrentGemma-2B's two paths are held to it in fp32 (see
+#: phase_serve_recurrentgemma)
 SERVE_TOL = 5e-2
 
 
@@ -995,16 +1016,15 @@ def phase_serve(dev, card: str):
     return launches
 
 
-def phase_flash_timing(dev, card: str):
-    """The kernel per launch at the serving layer's shape, by CUDA events,
-    beside its bound, its twin and the library yardstick
+def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
+    """The kernel per launch at a serving layer's shape ``f``, by CUDA
+    events, beside its bound, its twin and the library yardstick
     ``scaled_dot_product_attention`` (enable_gqa, the same boolean causal +
     window mask; timed only, never on the port's path)."""
     from repro_torch.kernels import flash_attention as FA
 
-    f = FLASH_SERVE
     gen = torch.Generator(device=dev)
-    gen.manual_seed(4500)
+    gen.manual_seed(seed)
     q, k, v = _flash_inputs(gen, f["B"], f["S"], f["H"], f["KV"], f["hd"],
                             torch.bfloat16, dev)
     args = dict(causal=f["causal"], window=f["window"])
@@ -1039,9 +1059,252 @@ def phase_flash_timing(dev, card: str):
          bound_by=bound_by, fp32_core_bound_ms=fp32_ms, gflop=flops / 1e9,
          kernel_tflops=flops / kernel_ms / 1e9, max_abs_diff=err,
          library_max_abs_diff_vs_twin=lib_err)
+    del q, k, v, got, twin, lib, mask
+    torch.cuda.empty_cache()
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, shape=shape,
                 max_abs_diff=err)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: rglru_scan, the kernel against its twin, bitwise (slice 4)
+# ---------------------------------------------------------------------------
+def _rglru_inputs(gen, B, S, W, dev, h0_zero: bool):
+    """a in (0.9, 1) as the serving model's gates give it, with an edge
+    column of a = 0 (forget) and one of a = 1 (sum); b normal; h0 zero or
+    normal."""
+    a = 0.9 + 0.1 * torch.rand((B, S, W), generator=gen, device=dev)
+    a[:, :, 0] = 0.0
+    a[:, :, W // 2] = 1.0
+    b = torch.randn((B, S, W), generator=gen, device=dev)
+    h0 = (torch.zeros((B, W), device=dev) if h0_zero
+          else torch.randn((B, W), generator=gen, device=dev))
+    return a, b, h0
+
+
+def phase_rglru_vs_twin(dev):
+    """``rglru_scan`` against its twin (``h = a[:, t] * h + b[:, t]``, two
+    rounded ops a step), bitwise, over B 1/4 x S 1/7/257/4096 x W
+    128/2560/2561 x h0 zero or random; S = 0 launches nothing."""
+    from repro_torch.kernels import rglru_scan as RS
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1404)
+    cases = 0
+    for B in (1, 4):
+        for S in (1, 7, 257, 4096):
+            for W in (128, 2560, 2561):
+                for h0_zero in (True, False):
+                    a, b, h0 = _rglru_inputs(gen, B, S, W, dev, h0_zero)
+                    ys, hf = RS.rglru_scan(a, b, h0)
+                    ys_t, hf_t = RS.rglru_scan_plain(a, b, h0)
+                    torch.cuda.synchronize()
+                    tag = f"B{B} S{S} W{W} h0={'0' if h0_zero else 'rand'}"
+                    check(ys.shape == (B, S, W) and hf.shape == (B, W),
+                          f"rglru {tag}: shapes {tuple(ys.shape)}")
+                    check(torch.equal(ys.view(torch.int32),
+                                      ys_t.view(torch.int32))
+                          and torch.equal(hf.view(torch.int32),
+                                          hf_t.view(torch.int32)),
+                          f"rglru {tag}: kernel != twin, max|d| = "
+                          f"{float((ys - ys_t).abs().max())}")
+                    check(torch.equal(hf, ys[:, -1]),
+                          f"rglru {tag}: h_final != ys[:, -1]")
+                    cases += 1
+                    del a, b, h0, ys, hf, ys_t, hf_t
+    a, b, h0 = _rglru_inputs(gen, 2, 0, 64, dev, False)
+    before = RS.LAUNCHES["rglru_scan"]
+    ys, hf = RS.rglru_scan(a, b, h0)
+    check(ys.shape == (2, 0, 64) and torch.equal(hf, h0)
+          and RS.LAUNCHES["rglru_scan"] == before,
+          "rglru S = 0: not the empty ys and h0, or a launch")
+    emit("rglru_vs_twin", cases=cases, max_abs_diff=0.0, bitwise=True,
+         empty_sequence_ok=True)
+    return 0.0
+
+
+def rglru_bound(B: int, S: int, W: int):
+    """(ms, bound_by): a and b read once and ys written once (h0 and
+    h_final are W-sized) against HBM, or 2 flops an element against the
+    fp32 cores, whichever is larger."""
+    nbytes = 3 * B * S * W * 4 + 2 * B * W * 4
+    return _bound(nbytes, 2 * B * S * W, FP32_FLOPS)
+
+
+def phase_rglru_timing(dev, card: str):
+    """The kernel per launch at RecurrentGemma's serving shape (B 4, S 4096,
+    W 2560), by CUDA events, beside its bound, its twin and the eager
+    log-depth scan of ``models.recurrent`` (the yardstick: no single
+    PyTorch call computes a linear recurrence)."""
+    from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.models.recurrent import linear_scan_eager
+
+    r = RGLRU_SERVE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4096)
+    a, b, h0 = _rglru_inputs(gen, r["B"], r["S"], r["W"], dev, False)
+    ys, hf = RS.rglru_scan(a, b, h0)
+    ys_t, _ = RS.rglru_scan_plain(a, b, h0)
+    check(torch.equal(ys.view(torch.int32), ys_t.view(torch.int32)),
+          "rglru at the serving shape: kernel != twin")
+    b0 = b.clone()
+    b0[:, 0] += a[:, 0] * h0
+
+    def eager():
+        return linear_scan_eager(a, b0)
+
+    ys_e = eager()
+    eager_err = float((ys_e - ys).abs().max())
+    check(torch.allclose(ys_e, ys, rtol=1e-4, atol=1e-4),
+          f"rglru at the serving shape: eager scan |d| = {eager_err}")
+    del ys_t, ys_e
+    kernel_ms = event_ms(lambda: RS.rglru_scan(a, b, h0), reps=20)
+    plain_ms = event_ms(lambda: RS.rglru_scan_plain(a, b, h0), reps=2)
+    eager_ms = event_ms(eager, reps=3)
+    bound_ms, bound_by = rglru_bound(r["B"], r["S"], r["W"])
+    shape = f"B{r['B']} S{r['S']} W{r['W']} fp32"
+    gbytes = (3 * r["B"] * r["S"] * r["W"] * 4) / 1e9
+    emit("rglru_timing", card=card, shape=shape, kernel_ms=kernel_ms,
+         plain_ms=plain_ms, eager_scan_ms=eager_ms, bound_ms=bound_ms,
+         bound_by=bound_by, kernel_gbps=gbytes / kernel_ms * 1e3,
+         eager_scan_max_abs_diff=eager_err)
+    del a, b, h0, b0, ys, hf
+    torch.cuda.empty_cache()
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                eager_scan_ms=eager_ms, bound_ms=bound_ms,
+                bound_by=bound_by, shape=shape)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the slice at full width -- serve RecurrentGemma-2B (slice 4)
+# ---------------------------------------------------------------------------
+def phase_serve_recurrentgemma(dev, card: str):
+    """Slice 4's main path: RecurrentGemma-2B at full width and depth (26
+    layers: 18 RG-LRU, 8 local attention at head dim 256), random weights
+    from seed 0, 4 requests of 4096 prompt tokens (over the 2048 window)
+    and 32 new tokens through ``launch.serve.serve`` with impl="flash"
+    (both kernels in the prefill), then the same weights and prompt with
+    impl="eager".  The launches are read right after the prefill and after
+    the decode loop, through a wrapper around the prefill step that
+    ``serve`` builds.  Then the same prompt's prefill in fp32, flash and
+    eager, whose logits must agree."""
+    from repro_torch.config import RGLRU, get_model_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import build_model
+    from repro_torch.models.base import iter_leaves
+
+    cfg = get_model_config("recurrentgemma-2b")
+    kinds = cfg.layer_kinds
+    n_rglru = sum(k == RGLRU for k in kinds)
+    n_attn = len(kinds) - n_rglru
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (RG_BATCH, RG_PROMPT), dtype=np.int64)
+
+    counts = lambda: (FA.LAUNCHES["flash_attention"],  # noqa: E731
+                      RS.LAUNCHES["rglru_scan"])
+    after_prefill = []
+    make_prefill = serve_mod.make_prefill_step
+
+    def counting_prefill(model, **kw):
+        step = make_prefill(model, **kw)
+
+        def run(params, batch):
+            out = step(params, batch)
+            after_prefill.append(counts())
+            return out
+
+        return run
+
+    serve_mod.make_prefill_step = counting_prefill
+    try:
+        runs, peaks, launches = {}, {}, {}
+        for impl in ("flash", "eager"):
+            FA.LAUNCHES["flash_attention"] = 0
+            RS.LAUNCHES["rglru_scan"] = 0
+            torch.cuda.reset_peak_memory_stats()
+            runs[impl] = serve_mod.serve(cfg, params, tokens,
+                                         new_tokens=RG_NEW, impl=impl,
+                                         device=dev)
+            peaks[impl] = torch.cuda.max_memory_allocated()
+            pf, total = after_prefill[-1], counts()
+            launches[impl] = {
+                "prefill": {"flash_attention": pf[0], "rglru_scan": pf[1]},
+                "decode": {"flash_attention": total[0] - pf[0],
+                           "rglru_scan": total[1] - pf[1]}}
+    finally:
+        serve_mod.make_prefill_step = make_prefill
+    fl = launches["flash"]
+    check(fl["prefill"] == {"flash_attention": n_attn, "rglru_scan": n_rglru}
+          and (n_attn, n_rglru) == (8, 18),
+          f"serve_recurrentgemma: flash prefill launches {fl['prefill']}, "
+          f"want 8 flash_attention and 18 rglru_scan")
+    check(fl["decode"] == {"flash_attention": 0, "rglru_scan": 0},
+          f"serve_recurrentgemma: decode launched kernels {fl['decode']}")
+    ea = launches["eager"]
+    check(all(v == 0 for part in ea.values() for v in part.values()),
+          f"serve_recurrentgemma: impl='eager' launched kernels {ea}")
+    flash, eager = runs["flash"], runs["eager"]
+    for name, r in runs.items():
+        check(r.finite, f"serve_recurrentgemma {name}: non-finite logits")
+        check(tuple(r.ids.shape) == (RG_BATCH, RG_NEW),
+              f"serve_recurrentgemma {name}: ids {tuple(r.ids.shape)}")
+    # flash against eager: in fp32, where the two paths must agree (the
+    # kernels against the eager scan and eager attention, nothing else
+    # differs), the same prompt's last-position prefill logits within
+    # SERVE_TOL.  In bf16 they are not held to it: at this depth a change of
+    # rounding anywhere (the attention path alone, or the recurrence alone)
+    # moves them by ~0.17, as far as either lies from the fp32 logits
+    # (PERF.md, section 6); those distances are reported.
+    f32 = {}
+    model32 = build_model(cfg.replace(dtype="float32"))
+    for impl in ("flash", "eager"):
+        FA.LAUNCHES["flash_attention"] = 0
+        RS.LAUNCHES["rglru_scan"] = 0
+        step = make_prefill(model32, max_len=RG_PROMPT + RG_NEW, impl=impl)
+        f32[impl] = step(params, {"tokens": torch.as_tensor(
+            tokens, device=dev)})[0][:, :cfg.vocab_size].float()
+        torch.cuda.synchronize()
+        want = (n_attn, n_rglru) if impl == "flash" else (0, 0)
+        check(counts() == want, f"serve_recurrentgemma fp32 {impl}: "
+              f"launches {counts()}, want {want}")
+    err, exc = _excess(f32["flash"], f32["eager"], SERVE_TOL)
+    check(exc <= 1.0, f"serve_recurrentgemma: fp32 prefill logits flash vs "
+          f"eager |d| = {err}")
+    lf = flash.prefill_logits[:, :cfg.vocab_size]
+    le = eager.prefill_logits[:, :cfg.vocab_size]
+    bf16_err, bf16_exc = _excess(lf, le, SERVE_TOL)
+    bf16_vs_f32 = {"flash": _excess(lf, f32["flash"], SERVE_TOL)[0],
+                   "eager": _excess(le, f32["flash"], SERVE_TOL)[0]}
+    agree = float((flash.ids == eager.ids).float().mean())
+    emit("serve_recurrentgemma", card=card, arch=cfg.name, params=n_params,
+         layers=cfg.num_layers, rglru_layers=n_rglru, attention_layers=n_attn,
+         d_model=cfg.d_model, lru_width=cfg.lru_width, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+         window=cfg.window, batch=RG_BATCH, prompt=RG_PROMPT,
+         new_tokens=RG_NEW, launches=launches, init_s=init_s,
+         prefill_ms={"flash": flash.prefill_s * 1e3,
+                     "eager": eager.prefill_s * 1e3},
+         decode_ms_per_token={
+             "flash": flash.decode_s * 1e3 / (RG_NEW - 1),
+             "eager": eager.decode_s * 1e3 / (RG_NEW - 1)},
+         peak_mem_gb={k: v / 1e9 for k, v in peaks.items()},
+         f32_logits_max_abs_diff=err, logits_tol=SERVE_TOL,
+         f32_logits_excess=exc, bf16_logits_max_abs_diff=bf16_err,
+         bf16_logits_excess=bf16_exc, bf16_vs_f32_max_abs=bf16_vs_f32,
+         logits_max_abs=float(f32["flash"].abs().max()),
+         ids_agree=agree,
+         ids_flash=flash.ids.tolist(), ids_eager=eager.ids.tolist())
+    del params, runs, flash, eager, f32
+    torch.cuda.empty_cache()
+    return fl["prefill"]
 
 
 def main() -> int:
@@ -1063,6 +1326,7 @@ def main() -> int:
     sort_diff = phase_sort_vs_twin(dev)
     gram_diff = phase_gram_vs_twin(dev)
     flash_diff = phase_flash_vs_twin(dev)
+    rglru_diff = phase_rglru_vs_twin(dev)
     phase_mixed_round(dev)
     launches = phase_slice()
     robust_launches = phase_robust_slice()
@@ -1070,6 +1334,9 @@ def main() -> int:
     robust = phase_robust_fold(dev)
     flash_launches = phase_serve(dev, card)
     flash = phase_flash_timing(dev, card)
+    rg_launches = phase_serve_recurrentgemma(dev, card)
+    flash_rg = phase_flash_timing(dev, card, FLASH_SERVE_RG, seed=4096)
+    rglru = phase_rglru_timing(dev, card)
     src = "src_torch/repro_torch/kernels/csrc/"
     lines = [
         dict(name="weighted_sum", source=src + "weighted_sum.cu",
@@ -1084,20 +1351,32 @@ def main() -> int:
              launches=robust_launches["gram"],
              **dict(robust["gram"], max_abs_diff=max(
                  gram_diff, robust["gram"]["max_abs_diff"]))),
+        # launches: the prefills of both serving paths (H2O-Danube, hd 80;
+        # RecurrentGemma, hd 256); the times at danube's shape, and at
+        # RecurrentGemma's under "hd256"
         dict(name="flash_attention", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:94",
-             launches=flash_launches,
-             **dict(flash, max_abs_diff=max(flash_diff,
-                                            flash["max_abs_diff"]))),
+             launches=flash_launches + rg_launches["flash_attention"],
+             launches_by_path={
+                 "serve": flash_launches,
+                 "serve_recurrentgemma": rg_launches["flash_attention"]},
+             hd256=flash_rg,
+             **dict(flash, max_abs_diff=max(flash_diff, flash["max_abs_diff"],
+                                            flash_rg["max_abs_diff"]))),
+        dict(name="rglru_scan", source=src + "rglru_scan.cu",
+             replaces="src/repro/kernels/rglru_scan.py:51",
+             launches=rg_launches["rglru_scan"], max_abs_diff=rglru_diff,
+             **rglru),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "max_abs_diff", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")
+            "library_ms", "shape", "launches_by_path", "hd256",
+            "eager_scan_ms")
     out = []
     for k in lines:
         k = dict(k, route="cuda", max_abs_err=k["max_abs_diff"],
                  ms=k.get("ms", k.get("kernel_ms")))
-        out.append({key: k[key] for key in keys})
+        out.append({key: k[key] for key in keys if key in k})
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,9 @@ at import time, so the package imports where there is no ``nvcc``.
 
 Flags (:func:`flags`): every source builds for ``sm_90a`` (Hopper) without
 ``--use_fast_math`` (subnormals are kept, divides and ``exp2f`` are the
-accurate ones).  The aggregation kernels also take ``-fmad=false``: they
-must round every product and sum on its own, because they are held bitwise
-against the numpy engine.  ``flash_attention`` is held to a tolerance, so
+accurate ones).  The aggregation kernels and ``rglru_scan`` also take
+``-fmad=false``: they must round every product and sum on its own, because
+they are held bitwise against the numpy engine or their twin.  ``flash_attention`` is held to a tolerance, so
 it lets ``nvcc`` contract a multiply and an add into one FMA.
 """
 from __future__ import annotations
@@ -36,6 +36,7 @@ SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
     "sort_reduce": ("-fmad=false",),
     "gram": ("-fmad=false",),
     "flash_attention": (),
+    "rglru_scan": ("-fmad=false",),
 }
 
 _LOCK = threading.Lock()

@@ -21,25 +21,33 @@
 // flops each: 411 GFLOP, 0.42 ms on the bf16 tensor cores (989 TFLOP/s),
 // against 230 MB of q, k, v and o (0.07 ms at 3.35 TB/s).  This first
 // kernel runs on the fp32 CUDA cores, so it cannot beat 411 GFLOP / 67
-// TFLOP/s = 6.1 ms, and the shared-memory loads, shuffles and exp2 beside
+// TFLOP/s = 6.1 ms.  At recurrentgemma's local attention (B 4, S 4096,
+// H 10, KV 1, hd 256, window 2048) the band is 6,292,480 pairs per (b, h),
+// 1024 flops each: 257.7 GFLOP, 0.26 ms on the tensor cores and 3.85 ms on
+// the fp32 cores.  The shared-memory loads, shuffles and exp2 beside
 // each pair's FMAs keep it well above that.  Tensor cores (mma.sync or
 // wgmma on bf16 with fp32 accumulate), TMA staging and warp specialisation
 // are the work that makes it fast.
 //
-// Design: one CTA per (q block of 64 rows, q head, batch); the heaviest q
-// blocks (last in the sequence) are launched first.  Four threads own a
-// query row: each keeps a quarter of q (pre-multiplied by log2 e, so the
+// Design: one CTA of 256 threads per (q block, q head, batch); the heaviest
+// q blocks (last in the sequence) are launched first.  kLanes threads own a
+// query row (4 up to head dim 128, so a q block is 64 rows; 8 at head dim
+// 256, 32 rows): each keeps its share of q (pre-multiplied by log2 e, so the
 // softmax uses exp2) and of the fp32 output accumulator in registers, in
-// float4 chunks interleaved across the four lanes (lane l owns chunks l,
-// l + 4, ...), so the four lanes read 64 consecutive bytes of shared memory
-// and no bank conflicts arise at any head dim.  K and V tiles of 32 keys are
-// staged through shared memory as fp32.  A score is four partial dot
-// products summed by two xor shuffles, identical in the row's four lanes,
-// which then each run the same online-softmax update (running max m, sum l)
-// on 8 keys at a time and fold p * v into their quarter of the accumulator.
-// Every thread of a CTA runs the same trip counts, so the shuffles never
-// diverge.  Head dims 32, 64, 80 and 128 are instantiated (80 is danube's:
-// 20 float4 chunks, not a power of two); others are refused.
+// float4 chunks interleaved across the lanes (lane l owns chunks l,
+// l + kLanes, ...), so a row's lanes read consecutive 16-byte chunks of
+// shared memory and no bank conflicts arise at any head dim.  K and V tiles
+// (32 keys; 16 at head dim 256, so the two tiles stay within the 48 KB of
+// static shared memory) are staged through shared memory as fp32.  A score
+// is kLanes partial dot products summed by xor shuffles (two, or three at
+// 8 lanes), identical in the row's lanes, which then each run the same
+// online-softmax update (running max m, sum l) on 8 keys at a time and fold
+// p * v into their share of the accumulator.  Every thread of a CTA runs
+// the same trip counts, so the shuffles never diverge.  Head dims 32, 64,
+// 80, 128 and 256 are instantiated (80 is danube's: 20 float4 chunks, not a
+// power of two; 256 is recurrentgemma's local attention, where 8 lanes keep
+// q and the accumulator at 32 registers each, as at 128); others are
+// refused.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,11 +55,16 @@
 
 namespace {
 
-constexpr int kRows = 64;                 // query rows per CTA
-constexpr int kLanes = 4;                 // threads per query row
-constexpr int kThreads = kRows * kLanes;  // 256
-constexpr int kKeys = 32;                 // keys per shared-memory tile
+constexpr int kThreads = 256;             // threads per CTA
 constexpr int kSub = 8;                   // keys scored at once
+
+// threads per query row, and keys per shared-memory tile, at head dim HD
+__host__ __device__ constexpr int lanes_for(int hd) { return hd > 128 ? 8 : 4; }
+__host__ __device__ constexpr int keys_for(int hd) { return hd > 128 ? 16 : 32; }
+// query rows per CTA
+__host__ __device__ constexpr int rows_for(int hd) {
+  return kThreads / lanes_for(hd);
+}
 constexpr float kLog2e = 1.4426950408889634f;
 // the reference's NEG_INF, -0.7 * float32 max: the running max before any key
 constexpr float kNegInf = -0.7f * 3.402823466e38f;
@@ -77,6 +90,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int g,
                  Strides qs, Strides ks, Strides vs, Strides os, int causal,
                  int window) {
+  constexpr int kLanes = lanes_for(HD);
+  constexpr int kKeys = keys_for(HD);
+  constexpr int kRows = rows_for(HD);
   static_assert(HD % (4 * kLanes) == 0, "head dim must split into float4s");
   static_assert(kKeys % kSub == 0, "tile must split into sub-chunks");
   constexpr int kChunks = HD / 4;          // float4 chunks in a row
@@ -151,8 +167,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           part = fmaf(qr[i].z, kk.z, part);
           part = fmaf(qr[i].w, kk.w, part);
         }
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        part += __shfl_xor_sync(0xffffffffu, part, 2);
+#pragma unroll
+        for (int off = 1; off < kLanes; off <<= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
         const int kp = t0 + j;
         const bool ok = j < nk && (!causal || kp <= qpos) &&
                         (window == 0 || kp > qpos - window);
@@ -200,37 +217,44 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <int HD, typename T>
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
+                      int B, int S, int H, int g, Strides qs, Strides ks,
+                      Strides vs, Strides os, int causal, int window,
+                      cudaStream_t stream) {
+  constexpr int kRows = rows_for(HD);
+  const dim3 grid((S + kRows - 1) / kRows, H, B);
+  flash_fwd_kernel<HD, T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), S, g, qs, ks, vs, os,
+      causal, window);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_dtype(int hd, const void* q, const void* k, const void* v,
                          void* o, int B, int S, int H, int g, Strides qs,
                          Strides ks, Strides vs, Strides os, int causal,
                          int window, cudaStream_t stream) {
-  const dim3 grid((S + kRows - 1) / kRows, H, B);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
   switch (hd) {
     case 32:
-      flash_fwd_kernel<32, T><<<grid, kThreads, 0, stream>>>(
-          qp, kp, vp, op, S, g, qs, ks, vs, os, causal, window);
-      break;
+      return launch_hd<32, T>(q, k, v, o, B, S, H, g, qs, ks, vs, os, causal,
+                              window, stream);
     case 64:
-      flash_fwd_kernel<64, T><<<grid, kThreads, 0, stream>>>(
-          qp, kp, vp, op, S, g, qs, ks, vs, os, causal, window);
-      break;
+      return launch_hd<64, T>(q, k, v, o, B, S, H, g, qs, ks, vs, os, causal,
+                              window, stream);
     case 80:
-      flash_fwd_kernel<80, T><<<grid, kThreads, 0, stream>>>(
-          qp, kp, vp, op, S, g, qs, ks, vs, os, causal, window);
-      break;
+      return launch_hd<80, T>(q, k, v, o, B, S, H, g, qs, ks, vs, os, causal,
+                              window, stream);
     case 128:
-      flash_fwd_kernel<128, T><<<grid, kThreads, 0, stream>>>(
-          qp, kp, vp, op, S, g, qs, ks, vs, os, causal, window);
-      break;
+      return launch_hd<128, T>(q, k, v, o, B, S, H, g, qs, ks, vs, os, causal,
+                               window, stream);
+    case 256:
+      return launch_hd<256, T>(q, k, v, o, B, S, H, g, qs, ks, vs, os, causal,
+                               window, stream);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace

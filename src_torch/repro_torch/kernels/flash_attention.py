@@ -29,9 +29,10 @@ import torch
 
 from repro_torch.kernels.ref import NEG_INF
 
-#: head dims the kernel is instantiated for: 80 (H2O-Danube), 64 and 128
-#: (the repo's other attention configs) and 32 (their smoke variants)
-HEAD_DIMS = (32, 64, 80, 128)
+#: head dims the kernel is instantiated for: 80 (H2O-Danube), 256
+#: (RecurrentGemma's local attention), 64 and 128 (the repo's other
+#: attention configs) and 32 (their smoke variants)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 
 #: kernel launches of the wrapper; the main path's runs read it
 LAUNCHES = {"flash_attention": 0}

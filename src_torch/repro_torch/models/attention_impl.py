@@ -10,6 +10,12 @@ The port names the two paths after what runs them:
   Hopper kernel :func:`repro_torch.kernels.flash_attention.flash_attention`
   (its plain twin on a CPU tensor).
 
+The same ``impl`` selects the RG-LRU recurrence's path
+(:mod:`repro_torch.models.recurrent`): ``"flash"`` runs the hand-written
+kernel :func:`repro_torch.kernels.rglru_scan.rglru_scan`, ``"eager"`` a
+log-depth scan in plain torch ops.  So ``impl="flash"`` selects both hand
+kernels of a model's prefill.
+
 Both satisfy the same contract and are cross-checked in the tests and on
 the card.  :func:`decode_attention` is plain torch: the reference computes
 it outside any Pallas kernel too.

@@ -16,6 +16,8 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import DeviceLike, resolve_device
+
 Axes = Tuple[Optional[str], ...]
 
 
@@ -90,12 +92,14 @@ def _materialize(spec: ParamSpec, gen: torch.Generator, param_dtype: str,
 
 
 def init_params(specs, seed: int, param_dtype: str = "float32",
-                device: torch.device = torch.device("cpu")):
+                device: DeviceLike = None):
     """Random parameters for a spec tree: each leaf draws from its own
-    ``torch.Generator`` on ``device``, seeded from ``seed`` and the leaf's
-    path.  The bits differ from ``jax.random``'s; the tests carry the
+    ``torch.Generator`` on ``device`` (None: the card; raises without one),
+    seeded from ``seed`` and the leaf's path.  The bits differ from ``jax.random``'s; the tests carry the
     reference's parameters across instead
     (:func:`repro_torch.models.api.params_from_reference`)."""
+    device = resolve_device(device)
+
     def build(tree, path: str):
         if isinstance(tree, ParamSpec):
             gen = torch.Generator(device=device)
@@ -139,7 +143,13 @@ def apply_norm(params, x, cfg):
 
 
 def _gelu_tanh(x):
-    return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default
+    """``jax.nn.gelu`` (its default, tanh-approximate) op for op in x's
+    dtype: in bf16 each product and sum rounds as the reference's does
+    (``F.gelu`` would round once), and the constants are cast to x's dtype
+    first, as JAX casts weakly typed scalars."""
+    c = lambda v: torch.tensor(v, dtype=x.dtype)  # noqa: E731
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 
 
 def activation(name: str):

@@ -11,8 +11,10 @@ Composes the block library according to ``cfg.layer_kinds``:
   unstacked.
 
 Caches follow the same grouping: {"pos", "pre_i", "scan_p" (stacked),
-"rem_r"}.  Recurrent blocks (RG-LRU, mLSTM, sLSTM), Multi-head Latent
-Attention and MoE layers are ROADMAP queue 1, item 11: they raise.
+"rem_r"}.  The block kinds are attention (full / sliding-window / local)
+and RG-LRU (RecurrentGemma: (rglru, rglru, local) periods, 26 = 8x3 + 2);
+the xLSTM blocks (mLSTM, sLSTM), Multi-head Latent Attention and MoE
+layers are ROADMAP queue 1, item 11: they raise.
 """
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.config import (ATTENTION_KINDS, ATTN, LOCAL_ATTN, MLSTM,
-                                SLSTM, SWA, ModelConfig)
-from repro_torch.models import attention, mlp
+                                RGLRU, SLSTM, SWA, ModelConfig)
+from repro_torch.models import attention, mlp, recurrent
 from repro_torch.models.base import ParamSpec, apply_norm, map_specs, norm_spec
 from repro_torch.sharding import cast_weight
 
@@ -41,6 +43,8 @@ def _needs_mlp(cfg: ModelConfig, kind: str) -> bool:
 def _kind_specs(cfg: ModelConfig, kind: str):
     if kind in (ATTN, SWA, LOCAL_ATTN):
         return attention.specs(cfg)
+    if kind == RGLRU:
+        return recurrent.rglru_specs(cfg)
     raise _not_ported(f"block kind {kind!r}")
 
 
@@ -59,6 +63,8 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                  device: torch.device) -> Dict:
     if kind in ATTENTION_KINDS:
         return attention.init_cache(cfg, batch, max_len, kind, device)
+    if kind == RGLRU:
+        return recurrent.rglru_init_cache(cfg, batch, device)
     raise _not_ported(f"block kind {kind!r}")
 
 
@@ -66,14 +72,18 @@ def apply_layer(params, x, cfg: ModelConfig, kind: str, moe_layer: bool, *,
                 mode: str, positions, cache, impl: str = "eager",
                 max_len=None):
     """One residual block. Returns (x, aux_loss_delta, new_cache)."""
-    if kind not in ATTENTION_KINDS:
-        raise _not_ported(f"block kind {kind!r}")
     if moe_layer:
         raise _not_ported("a mixture-of-experts layer")
     h = apply_norm(params["norm1"], x, cfg)
-    y, new_cache = attention.apply(params["mix"], h, cfg, mode=mode,
-                                   positions=positions, cache=cache,
-                                   kind=kind, impl=impl, max_len=max_len)
+    if kind in ATTENTION_KINDS:
+        y, new_cache = attention.apply(params["mix"], h, cfg, mode=mode,
+                                       positions=positions, cache=cache,
+                                       kind=kind, impl=impl, max_len=max_len)
+    elif kind == RGLRU:
+        y, new_cache = recurrent.rglru_apply(params["mix"], h, cfg, mode=mode,
+                                             cache=cache, impl=impl)
+    else:
+        raise _not_ported(f"block kind {kind!r}")
     x = x + y
     if "mlp" in params:
         h = apply_norm(params["norm2"], x, cfg)

@@ -1,5 +1,6 @@
-"""Where the serving path's time goes on the card: H2O-Danube-1.8B at full
-width, 4 requests x 4500 prompt tokens, seed 0.
+"""Where the serving path's time goes on the card: a registered model at
+full width (``--arch``, default H2O-Danube-1.8B), ``--batch`` requests x
+``--prompt`` prompt tokens (default 4 x 4500), random weights from seed 0.
 
 Times two prefills and a few decode steps on the host clock (each ending
 in a device sync; the first of each is the warm-up), decode steps with
@@ -9,7 +10,9 @@ steps and one prefill.  Run from the root of a checkout on a machine with
 one NVIDIA H100:
 
     python3 src_torch/tools/profile_serve.py
+    python3 src_torch/tools/profile_serve.py --arch recurrentgemma-2b --prompt 4096
 """
+import argparse
 import os
 import sys
 import time
@@ -26,7 +29,7 @@ from repro_torch.config import get_model_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.train.steps import make_decode_step, make_prefill_step  # noqa: E402
 
-BATCH, PROMPT, NEW = 4, 4500, 32
+NEW = 32
 
 
 def _ms(fn):
@@ -41,19 +44,27 @@ def _table(prof, key: str) -> str:
     return prof.key_averages().table(sort_by=key, row_limit=25)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="h2o-danube-1.8b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt", type=int, default=4500)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serve: needs a CUDA card", file=sys.stderr)
         return 2
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
     dev = torch.device("cuda")
-    cfg = get_model_config("h2o-danube-1.8b")
+    cfg = get_model_config(args.arch)
     model = build_model(cfg)
     params = model.init(0, device=dev)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (BATCH, PROMPT))).to(dev)
-    prefill = make_prefill_step(model, max_len=PROMPT + NEW, impl="flash")
+        0, cfg.vocab_size, (args.batch, args.prompt))).to(dev)
+    print(f"{cfg.name}: {args.batch} x {args.prompt} prompt tokens",
+          flush=True)
+    prefill = make_prefill_step(model, max_len=args.prompt + NEW,
+                                impl="flash")
     decode = make_decode_step(model, impl="flash")
     for _ in range(2):
         ms, (last, cache) = _ms(lambda: prefill(params, {"tokens": tokens}))

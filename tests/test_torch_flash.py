@@ -10,8 +10,10 @@
   (and the port's copy of it, ``repro_torch.kernels.ref``),
 
 over the ``FLASH_CASES`` grid of ``tests/test_kernels.py:21-29``, danube's
-head geometry (hd 80, GQA 4, a window), S = 509 with blocks of 64 and a
-fully masked row, at ``tests/test_kernels.py:42``'s tolerances: 2e-5 for
+head geometry (hd 80, GQA 4, a window), S = 509 with blocks of 64, a
+fully masked row, and RecurrentGemma's local attention (``HD256_CASES``:
+hd 256, MQA with 10 or 4 query heads, window 0 or 16), at
+``tests/test_kernels.py:42``'s tolerances: 2e-5 for
 fp32 and 2e-2 for bf16 inputs (``assert_allclose`` with rtol = atol).
 Inputs come from a numpy seed; bf16 inputs are rounded from the same fp32
 values on both sides.
@@ -57,6 +59,19 @@ CASES = [c + (32,) for c in FLASH_CASES] + [
 ]
 
 
+#: RecurrentGemma's local attention: hd 256, one kv head (MQA), 10 or 4
+#: query heads, window 0 or 16, causal; same fields as CASES
+HD256_CASES = [
+    (1, 64, 10, 1, 256, 0, True, "float32", 32),
+    (1, 64, 10, 1, 256, 16, True, "float32", 32),
+    (2, 100, 4, 1, 256, 16, True, "float32", 32),
+    (1, 100, 4, 1, 256, 0, True, "float32", 64),
+    (2, 48, 10, 1, 256, 16, True, "bfloat16", 16),
+    (1, 100, 4, 1, 256, 0, True, "bfloat16", 64),
+]
+ALL_CASES = CASES + HD256_CASES
+
+
 def _ids(c):
     B, S, H, KV, hd, window, causal, dtype = c[:8]
     return f"B{B}-S{S}-H{H}kv{KV}-hd{hd}-w{window}-c{int(causal)}-{dtype}"
@@ -91,12 +106,12 @@ def _f32(t: torch.Tensor) -> np.ndarray:
     return t.float().numpy()
 
 
-@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("case", ALL_CASES, ids=_ids)
 def test_twin_matches_reference_pallas_kernel(case):
     from repro.kernels import ops
 
     B, S, H, KV, hd, window, causal, dtype, block = case
-    arrays = _inputs(CASES.index(case), B, S, H, KV, hd)
+    arrays = _inputs(ALL_CASES.index(case), B, S, H, KV, hd)
     want = ops.flash_attention(*_jax(arrays, dtype), causal=causal,
                                window=window, block_q=block, block_kv=block)
     got = FA.flash_attention_plain(*_torch(arrays, dtype), causal=causal,
@@ -106,12 +121,12 @@ def test_twin_matches_reference_pallas_kernel(case):
     _close(_f32(got), want, dtype)
 
 
-@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("case", ALL_CASES, ids=_ids)
 def test_twin_and_port_oracle_match_reference_oracle(case):
     from repro.kernels import ref as RREF
 
     B, S, H, KV, hd, window, causal, dtype, block = case
-    arrays = _inputs(100 + CASES.index(case), B, S, H, KV, hd)
+    arrays = _inputs(100 + ALL_CASES.index(case), B, S, H, KV, hd)
     want = RREF.flash_attention_ref(*_jax(arrays, dtype), causal=causal,
                                     window=window)
     xs = _torch(arrays, dtype)
@@ -143,6 +158,16 @@ def test_fully_masked_rows_give_zero(dtype):
 
 def test_wrapper_runs_the_twin_on_cpu_and_counts_no_launch():
     arrays = _inputs(3, 2, 100, 8, 2, 80)
+    xs = _torch(arrays, "float32")
+    before = FA.LAUNCHES["flash_attention"]
+    got = FA.flash_attention(*xs, causal=True, window=16)
+    want = FA.flash_attention_plain(*xs, causal=True, window=16)
+    assert torch.equal(got, want)
+    assert FA.LAUNCHES["flash_attention"] == before
+
+
+def test_wrapper_takes_head_dim_256_and_runs_the_twin_on_cpu():
+    arrays = _inputs(3, 2, 100, 10, 1, 256)
     xs = _torch(arrays, "float32")
     before = FA.LAUNCHES["flash_attention"]
     got = FA.flash_attention(*xs, causal=True, window=16)
@@ -191,7 +216,7 @@ def test_each_source_gets_its_own_nvcc_flags():
         f = _build.flags(name)
         assert "arch=compute_90a,code=sm_90a" in f
         assert "--use_fast_math" not in f and "-use_fast_math" not in f
-    for name in ("weighted_sum", "sort_reduce", "gram"):
+    for name in ("weighted_sum", "sort_reduce", "gram", "rglru_scan"):
         assert "-fmad=false" in _build.flags(name)
     assert not any(x.startswith("-fmad") for x in
                    _build.flags("flash_attention"))
@@ -221,6 +246,8 @@ CARD_CASES = [
     (1, 64, 4, 4, 64, 0, True), (2, 509, 8, 2, 80, 16, True),
     (2, 509, 8, 2, 80, 0, False), (1, 300, 4, 1, 128, 4096, True),
     (1, 200, 4, 2, 32, 24, False), (1, 1000, 32, 8, 80, 256, True),
+    (1, 509, 10, 1, 256, 16, True), (2, 300, 4, 1, 256, 0, True),
+    (1, 1000, 8, 2, 256, 256, True),
 ]
 
 

@@ -5,7 +5,9 @@ parameter initialisation.
 attention: the kernel's twin on the CPU) and decodes token by token.  Its
 generated ids are held against the port's own ``greedy_generate`` and, at
 fp32, against the reference's (``repro.train.steps.greedy_generate``, with
-the reference's weights carried across).  ``Model.init`` draws each leaf
+the reference's weights carried across), for H2O-Danube-1.8B's and
+RecurrentGemma-2B's smoke configs (the latter's prefill runs the
+``rglru_scan`` kernel's twin and the flash twin at once).  ``Model.init`` draws each leaf
 from its own generator, seeded from the seed and the leaf's path.
 """
 import os, sys  # noqa: E401
@@ -26,6 +28,7 @@ from repro_torch.models import build_model, params_from_reference
 from repro_torch.train.steps import greedy_generate
 
 SMOKE = TC.get_model_config("h2o-danube-1.8b", smoke=True)
+RG_SMOKE = TC.get_model_config("recurrentgemma-2b", smoke=True)
 
 
 def _leaves(tree, path=""):
@@ -70,6 +73,47 @@ def test_serve_matches_greedy_generate_and_the_reference_at_fp32():
                                rtol=1e-4, atol=1e-4)
 
 
+def test_main_serves_recurrentgemma_on_the_cpu(capsys):
+    S.main(["--arch", "recurrentgemma-2b", "--device", "cpu",
+            "--new-tokens", "5"])
+    out = capsys.readouterr().out
+    assert "arch=recurrentgemma-2b-smoke batch=4 prompt=32 device=cpu" in out
+    line = [ln for ln in out.splitlines()
+            if ln.startswith("generated ids (req 0):")]
+    assert len(line) == 1
+    ids = eval(line[0].split(":", 1)[1])
+    assert len(ids) == 5 and all(0 <= i < RG_SMOKE.vocab_size for i in ids)
+
+
+def test_serve_recurrentgemma_matches_the_reference_at_fp32():
+    """40-token prompts (> window 16): the rotating cache and the carried
+    recurrent state both run; ids equal the reference's greedy ids, and the
+    eager path (log-depth scan, eager attention) gives the same ids."""
+    rcfg = RC.get_model_config("recurrentgemma-2b", smoke=True).replace(
+        dtype="float32")
+    cfg = RG_SMOKE.replace(dtype="float32")
+    rmodel = r_build(rcfg)
+    rparams = rmodel.init(jax.random.key(6))
+    params = params_from_reference(jax.tree.map(np.asarray, rparams),
+                                   device="cpu")
+    tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (3, 40))
+    res = S.serve(cfg, params, tokens, new_tokens=6, device="cpu")
+    assert res.finite and tuple(res.ids.shape) == (3, 6)
+    assert tuple(res.prefill_logits.shape) == (3, cfg.padded_vocab_size)
+    want = np.asarray(r_greedy(rmodel, rparams,
+                               jnp.asarray(tokens, jnp.int32), 6))
+    assert np.array_equal(res.ids.numpy(), want)
+    mine = greedy_generate(build_model(cfg), params,
+                           torch.from_numpy(tokens), 6, impl="flash")
+    assert torch.equal(res.ids, mine)
+    eager = S.serve(cfg, params, tokens, new_tokens=6, impl="eager",
+                    device="cpu")
+    assert torch.equal(eager.ids, res.ids)
+    np.testing.assert_allclose(eager.prefill_logits.numpy(),
+                               res.prefill_logits.numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_serve_runs_under_deterministic_algorithms():
     params = build_model(SMOKE).init(0, device="cpu")
     tokens = np.random.default_rng(0).integers(0, SMOKE.vocab_size, (2, 24))
@@ -106,12 +150,12 @@ def test_init_does_not_depend_on_leaf_order():
             return {k: reverse(tree[k]) for k in reversed(list(tree))}
         return tree
 
-    fwd = dict(_leaves(TB.init_params(specs, 7)))
-    rev = dict(_leaves(TB.init_params(reverse(specs), 7)))
+    fwd = dict(_leaves(TB.init_params(specs, 7, device="cpu")))
+    rev = dict(_leaves(TB.init_params(reverse(specs), 7, device="cpu")))
     assert list(fwd) != list(rev) and sorted(fwd) == sorted(rev)
     assert all(torch.equal(fwd[p], rev[p]) for p in fwd)
     # a leaf made alone, under its path, is the same leaf
-    alone = TB.init_params({"lm_head": specs["lm_head"]}, 7)
+    alone = TB.init_params({"lm_head": specs["lm_head"]}, 7, device="cpu")
     assert torch.equal(alone["lm_head"], fwd["['lm_head']"])
 
 
@@ -140,3 +184,18 @@ def test_init_without_a_device_raises_where_there_is_no_card(monkeypatch):
     params = model.init(0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         S.serve(SMOKE, params, np.zeros((1, 4), np.int64), new_tokens=2)
+
+
+def test_init_params_without_a_device_raises_where_there_is_no_card(
+        monkeypatch):
+    """``base.init_params`` resolves its device as every entry point does:
+    None means the card, and names the CPU only when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    specs = build_model(RG_SMOKE).param_specs()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TB.init_params(specs, 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TB.init_params(specs, 0, device="cuda")
+    p = TB.init_params(specs, 0, device="cpu")
+    assert all(t.device.type == "cpu" for _, t in _leaves(p))
+    assert "lam" in p["scan_0"]["mix"]
