@@ -6,29 +6,36 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds every CUDA kernel of the port from the sources in the checkout
 (``weighted_sum``, ``sort_reduce``, ``gram``, ``flash_attention``,
-``rglru_scan``: one ``nvcc`` each, all started together), holds each
-kernel against its plain PyTorch twin on the card (``rglru_scan``
-bitwise), folds a round that mixes codecs and bases against the numpy
-engine, drives the four main paths -- the quickstart
-FedAvg round (slice 1) and the quickstart with the robust strategies
-FedMedian, FedTrimmedMean and Krum on five sites (slice 2), each natively
-and as a FLARE job, clients fitting on the card and the server reducing
-with the kernels, and H2O-Danube-1.8B at full width and depth serving 4
-requests of 4500 prompt tokens and 32 new tokens with flash attention in
-every layer's prefill, against the same model on the eager attention path
-(slice 3), and RecurrentGemma-2B at full width and depth serving 4
-requests of 4096 prompt tokens and 32 new tokens with the ``rglru_scan``
-kernel in its 18 RG-LRU layers and the flash kernel at head dim 256 in
-its 8 local-attention layers, against the same model on the eager paths
-(slice 4) -- folds a 50M-parameter x 16-client round at the benchmark's
-geometry (FedAvg, then median, trimmed mean and Krum on distinct
-payloads), times the flash kernel at both serving layers' shapes and
-``rglru_scan`` at RecurrentGemma's, and prints one JSON line per phase.  The line before the last is the
-``kernels`` line; the last line is ``{"ok": true, "device": {...}}``.  Any
-failed check raises and the script exits non-zero.  It imports nothing of
-JAX or of the JAX package: every parity check is against the plain twins,
-the port's own numpy engine and the port's full-matrix attention oracle.
-It exits non-zero when CUDA is not available.
+``rglru_scan``, ``scatter_wsum``, ``secagg_mask``: one ``nvcc`` each, all
+started together), holds each kernel against its plain PyTorch twin on
+the card (``rglru_scan``, ``scatter_wsum`` and ``weighted_sum``'s fp32
+tiles bitwise, ``secagg_mask`` exactly), folds a round that mixes codecs
+and bases against the numpy engine, and drives the main paths: the
+quickstart FedAvg round (slice 1) and the quickstart with the robust
+strategies FedMedian, FedTrimmedMean and Krum on five sites (slice 2),
+each natively and as a FLARE job, clients fitting on the card and the
+server reducing with the kernels; H2O-Danube-1.8B at full width and depth
+serving 4 requests of 4500 prompt tokens and 32 new tokens with flash
+attention in every layer's prefill, against the same model on the eager
+attention path (slice 3); RecurrentGemma-2B at full width and depth
+serving 4 requests of 4096 prompt tokens and 32 new tokens with the
+``rglru_scan`` kernel in its 18 RG-LRU layers and the flash kernel at
+head dim 256 in its 8 local-attention layers, against the eager paths
+(slice 4); and slice 5's server folds: the sharded fold at the
+benchmark's 50M x 16 geometry over 8 shard ranges (fp64 and fp32 tiles),
+the 0xF5 sparse fold of 100M-parameter deltas from 8 clients through
+``scatter_wsum`` (COO and adapter ranges), the SecAgg quickstart
+natively and in FLARE and a DP + TopK round, and ``secagg_mask`` through
+its public entry point ``kernels/ops.py``.  It also folds a
+50M-parameter x 16-client round at the benchmark's geometry (FedAvg,
+then median, trimmed mean and Krum on distinct payloads), times each
+kernel at its main path's shape beside its bound, and prints one JSON
+line per phase.  The line before the last is the ``kernels`` line; the
+last line is ``{"ok": true, "device": {...}}``.  Any failed check raises
+and the script exits non-zero.  It imports nothing of JAX or of the JAX
+package: every parity check is against the plain twins, the port's own
+numpy engine and the port's full-matrix attention oracle.  It exits
+non-zero when CUDA is not available.
 """
 import os
 import sys
@@ -58,7 +65,8 @@ FP64_TENSOR_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
 AGG_KERNELS = ("weighted_sum", "sort_reduce", "gram")
-KERNELS = AGG_KERNELS + ("flash_attention", "rglru_scan")
+KERNELS = AGG_KERNELS + ("flash_attention", "rglru_scan", "scatter_wsum",
+                         "secagg_mask")
 
 SITES = ["site-1", "site-2", "site-3"]
 #: the robust quickstart: five sites, so that FedTrimmedMean(beta=0.2) trims
@@ -335,20 +343,23 @@ def phase_gram_vs_twin(dev):
 # phase 3: the slice at full width (quickstart, native and in FLARE)
 # ---------------------------------------------------------------------------
 def _history(codec, backend, flare: bool, low_memory: bool = False,
-             faults: bool = False, strategy=None, sites=SITES):
-    """One 3-round quickstart run (FedAvg unless ``strategy`` is given)."""
+             faults: bool = False, strategy=None, sites=SITES, mods=None,
+             rounds: int = 3):
+    """One quickstart run of ``rounds`` rounds (FedAvg unless ``strategy``
+    is given; ``mods(site)`` gives a site's client mods)."""
     from repro_torch.core import run_in_flare, run_native
     from repro_torch.fl import FedAvg, ServerApp, ServerConfig
     from repro_torch.fl.quickstart import make_client_app
     from repro_torch.runtime import FlareRuntime
     from repro_torch.runtime.transport import FaultSpec
 
-    app = ServerApp(config=ServerConfig(num_rounds=3, round_timeout=120,
+    app = ServerApp(config=ServerConfig(num_rounds=rounds, round_timeout=120,
                                         codec=codec, agg_backend=backend),
                     strategy=strategy or FedAvg(low_memory=low_memory))
     # the quickstart at its own width: dim 32, hidden 64, 10 classes
-    clients = lambda s: make_client_app(s, dim=32, classes=10,  # noqa: E731
-                                        n_train=512, n_test=256)
+    clients = lambda s: make_client_app(  # noqa: E731
+        s, mods=mods(s) if mods else None, dim=32, classes=10, n_train=512,
+        n_test=256)
     if not flare:
         return run_native(app, clients, sites)
     rt = FlareRuntime(faults=FaultSpec(drop_prob=0.15, dup_prob=0.1,
@@ -818,6 +829,11 @@ RG_BATCH, RG_PROMPT, RG_NEW = 4, 4096, 32
 FLASH_SERVE_RG = dict(B=RG_BATCH, S=RG_PROMPT, H=10, KV=1, hd=256,
                       window=2048, causal=True)
 RGLRU_SERVE = dict(B=RG_BATCH, S=RG_PROMPT, W=2560)
+#: secagg_mask's cases: up to the benchmark's N (benchmarks/run.py:259-263)
+SECAGG_N = (1, 7, 4097, 1 << 16)
+#: secagg_mask's second timed shape: one client of a 16-client round of
+#: the 50M-parameter fold (N, P)
+SECAGG_BIG = (50_000_000, 15)
 
 
 def _flash_inputs(gen, B, S, H, KV, hd, dtype, dev):
@@ -1307,6 +1323,565 @@ def phase_serve_recurrentgemma(dev, card: str):
     return fl["prefill"]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: slice 5's kernels against their twins
+# ---------------------------------------------------------------------------
+def phase_secagg_vs_twin(dev):
+    """``secagg_mask`` against its twin, exactly, over N 1 / 7 / 4097 /
+    2**16 x P 0 / 1 / 3 / 15 masks x weights 1 and 3, x holding values
+    that clip, NaN and +-inf, masks over the whole int32 range (their sum
+    wraps)."""
+    from repro_torch.kernels import secagg_mask as SM
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1505)
+    edge = torch.tensor([1e6, -1e6, float("nan"), float("inf"),
+                         -float("inf"), 2.5 / 65536, -2.5 / 65536, 1e30],
+                        device=dev)
+    cases = 0
+    for n in SECAGG_N:
+        for p in (0, 1, 3, 15):
+            for w in (1.0, 3.0):
+                x = 3e3 * torch.randn(n, device=dev, generator=gen)
+                k = min(n, edge.numel())
+                x[:k] = edge[:k]
+                if n > 64:
+                    x[torch.randint(n, (n // 50,), device=dev,
+                                    generator=gen)] = float("nan")
+                masks = _int32_masks(gen, p, n, dev)
+                got = SM.secagg_mask(x, masks, w)
+                want = SM.secagg_mask_plain(x, masks, w)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"secagg_mask != twin: N={n} P={p} w={w}")
+                cases += 1
+    emit("secagg_vs_twin", cases=cases, max_abs_diff=0.0, exact=True)
+    return 0.0
+
+
+def _int32_masks(gen, p: int, n: int, dev):
+    """(P, N) int32 masks drawn over the whole int32 range."""
+    return torch.randint(-2 ** 31, 2 ** 31, (p, n), dtype=torch.int64,
+                         device=dev, generator=gen).to(torch.int32)
+
+
+def phase_wsum_f32_vs_twin(dev):
+    """``weighted_sum`` with fp32 tiles against its twin, bitwise, and
+    against the fp64 tiles on the weighted mean (the sum over the summed
+    weights, the quantity the reference holds its fp32 tiles to) at rtol
+    1e-4 / atol 1e-5 (tests/test_agg_pallas.py:536-546)."""
+    from repro_torch.kernels import agg_reduce
+
+    rng = np.random.default_rng(2025)
+    worst = 0.0
+    cases = 0
+    for kind in ("int8", "float16", "bfloat16", "float32", "float64"):
+        for c in (1, 3, 16):
+            for n in (6922, 1_000_003):
+                for with_acc in (False, True):
+                    data, w, kw = _inputs(rng, kind, c, n, dev, with_acc)
+                    got = agg_reduce.weighted_sum(data, w,
+                                                  tile_dtype="float32", **kw)
+                    want = agg_reduce.weighted_sum_plain(
+                        data, w, tile_dtype="float32", **kw)
+                    f64 = agg_reduce.weighted_sum(data, w, **kw)
+                    torch.cuda.synchronize()
+                    tag = f"{kind} C={c} N={n} acc={with_acc}"
+                    check(torch.equal(got.view(torch.int64),
+                                      want.view(torch.int64)),
+                          f"weighted_sum fp32 tiles != twin: {tag}")
+                    wsum = float(w.sum())
+                    check(torch.allclose(got / wsum, f64 / wsum, rtol=1e-4,
+                                         atol=1e-5),
+                          f"weighted_sum fp32 tiles vs fp64: {tag}")
+                    worst = max(worst, float(((got - f64) / wsum).abs()
+                                             .max()))
+                    cases += 1
+    emit("wsum_f32_vs_twin", cases=cases, bitwise=True,
+         max_abs_diff_vs_f64_mean=worst, rtol=1e-4, atol=1e-5)
+    return 0.0
+
+
+def phase_scatter_vs_twin(dev):
+    """``scatter_wsum`` against its twin, bitwise: int8 and fp32 values,
+    a slice and unique indices (on the host, checked there and copied; or
+    already on the card), ``pos0`` 0 and 1000 (the windows straddle a
+    qchunk edge), nnz 0 / 1 / 777 / 10**6."""
+    from repro_torch.kernels import agg_reduce
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1506)
+    m = 4_000_037
+    cases = 0
+    for q8 in (True, False):
+        for slice_dest in (True, False):
+            for nnz in (0, 1, 777, 1_000_000):
+                for pos0 in (0, 1000):
+                    acc = torch.randn(m, dtype=torch.float64, device=dev,
+                                      generator=gen)
+                    scales = None
+                    if q8:
+                        vals = torch.randint(-127, 128, (nnz,),
+                                             dtype=torch.int8, device=dev,
+                                             generator=gen)
+                        scales = 1e-4 + 1e-2 * torch.rand(
+                            -(-(pos0 + nnz) // 1024) + 1, device=dev,
+                            generator=gen)
+                    else:
+                        vals = torch.randn(nnz, device=dev, generator=gen)
+                    if slice_dest:
+                        dest = 12_345
+                    else:
+                        dest = torch.sort(torch.randperm(
+                            m, device=dev, generator=gen)[:nnz]).values
+                        if pos0 == 0:
+                            dest = dest.cpu()      # the host-checked path
+                    p0 = pos0 if q8 else 0
+                    got, want = acc.clone(), acc.clone()
+                    before = agg_reduce.LAUNCHES["scatter_wsum"]
+                    agg_reduce.scatter_wsum(got, dest, vals, 2.5,
+                                            scales=scales, pos0=p0)
+                    agg_reduce.scatter_wsum_plain(
+                        want, dest if slice_dest else dest.to(dev), vals,
+                        2.5, scales=scales, pos0=p0)
+                    torch.cuda.synchronize()
+                    tag = (f"q8={q8} slice={slice_dest} nnz={nnz} "
+                           f"pos0={p0}")
+                    check(agg_reduce.LAUNCHES["scatter_wsum"]
+                          == before + (nnz > 0),
+                          f"scatter_wsum launches: {tag}")
+                    check(torch.equal(got.view(torch.int64),
+                                      want.view(torch.int64)),
+                          f"scatter_wsum != twin: {tag}")
+                    cases += 1
+                    del acc, got, want, vals, dest
+    emit("scatter_vs_twin", cases=cases, max_abs_diff=0.0, bitwise=True)
+    return 0.0
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the sharded fold at the benchmark's geometry (50M x 16)
+# ---------------------------------------------------------------------------
+#: benchmarks/run.py::_shard_agg_case: 50M parameters as one leaf, q8 deltas
+#: against a q8 downlink, 16 clients reusing one payload, weights 10 + i,
+#: seed 23, 8 shards
+SHARD_PARAMS, SHARD_COUNT = 50_000_000, 8
+
+
+def wsum_arrival_bound(n: int, nscales: int, shards: int):
+    """(ms, bound_by) for one arrival of an int8 payload folded into the
+    shards' fp64 accumulators: the payload and its scales read once, each
+    shard's fp64 weight, the accumulator read and the result written
+    (fp32 and fp64 tiles move the same bytes), against HBM; or a multiply
+    and an add an element against the fp64 rate."""
+    nbytes = n + nscales * 4 + shards * 8 + 2 * n * 8
+    return _bound(nbytes, 2 * n)
+
+
+def phase_shard_fold(dev, card: str):
+    """Slice 5's sharded path: ``StreamingWeightedSum(shards=8)`` on the
+    torch backend at the benchmark's geometry, every arrival folded per
+    shard through ``weighted_sum`` with the base deferred, finalize on the
+    card.  Gates: 8 shards == 1 shard == the numpy engine's sharded fold,
+    bitwise; each shard's accumulator within (1/8 + 10%) of the
+    single-host one.  Then the same with fp32 tiles (within rtol 1e-4 /
+    atol 1e-5 of fp64), and one arrival's eight shard launches by CUDA
+    events in both tile types beside its bound and the twin."""
+    from repro_torch.fl import agg_kernels as K
+    from repro_torch.fl.flat import QuantParams, layout_for, quantize_int8
+    from repro_torch.kernels import agg_reduce as A
+
+    n = SHARD_PARAMS
+    layout = layout_for([("float32", (n,))])
+    rng = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    bq, bs = quantize_int8(rng.random(n, np.float32))
+    base = QuantParams(layout, "q8", bq, bs)            # the q8 downlink
+    dq, ds = quantize_int8(
+        rng.standard_normal(n, dtype=np.float32) * 1e-3)
+    payload = QuantParams(layout, "q8", dq, ds, is_delta=True, base=base)
+    data_s = time.perf_counter() - t0
+    weights = [10.0 + i for i in range(CLIENTS)]
+
+    split = {}
+
+    def fold(backend, **kw):
+        s = K.StreamingWeightedSum(
+            layout, backend=backend, device=dev if backend == "torch"
+            else None, **kw)
+        split["arrivals_ms"], _ = sync_ms(
+            lambda: [s.add(payload, w) for w in weights])
+        split["finalize_ms"], out = sync_ms(s.finalize)
+        return s, out
+
+    A.LAUNCHES["weighted_sum"] = 0
+    cold_ms, _ = sync_ms(lambda: fold("torch", shards=SHARD_COUNT))
+    launches = A.LAUNCHES["weighted_sum"]
+    check(launches == (CLIENTS + 1) * SHARD_COUNT,
+          f"shard fold: {launches} weighted_sum launches, want "
+          f"{(CLIENTS + 1) * SHARD_COUNT}")
+    fold_ms, (s8, out8) = sync_ms(lambda: fold("torch", shards=SHARD_COUNT))
+    fold_split = dict(split)
+    _, (_, out1) = sync_ms(lambda: fold("torch", shards=1))
+    check(out8.buf.tobytes() == out1.buf.tobytes(),
+          "shard fold: 8 shards != 1 shard")
+    t0 = time.perf_counter()
+    _, outn = fold("numpy", shards=SHARD_COUNT)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    check(out8.buf.tobytes() == outn.buf.tobytes(),
+          "shard fold: torch != numpy engine")
+    mem_ok = s8.per_shard_acc_bytes() <= n * 8 * (1 / SHARD_COUNT + 0.10)
+    check(mem_ok, f"shard fold: {s8.per_shard_acc_bytes()} B per shard")
+    v8 = out8.math_view()
+    check(bool(np.isfinite(v8).all()), "shard fold: non-finite output")
+    A.LAUNCHES["weighted_sum"] = 0
+    f32_ms, (_, out32) = sync_ms(lambda: fold(
+        "torch", shards=SHARD_COUNT, tile_dtype="float32"))
+    f32_launches = A.LAUNCHES["weighted_sum"]
+    check(f32_launches == launches,
+          f"shard fold fp32 tiles: {f32_launches} launches")
+    v32 = out32.math_view()
+    f32_err = float(np.abs(v32.astype(np.float64) - v8).max())
+    check(np.allclose(v32, v8, rtol=1e-4, atol=1e-5),
+          f"shard fold fp32 tiles vs fp64: max |d| = {f32_err}")
+    # one arrival's eight shard launches on the card, both tile types
+    live = [(lo, hi) for lo, hi in s8._bounds if hi > lo]
+    stacks = [K._device_stack([K._tile(payload, lo, hi)], dev, {})
+              for lo, hi in live]
+    accs = [torch.zeros(hi - lo, dtype=torch.float64, device=dev)
+            for lo, hi in live]
+    w = torch.tensor([weights[-1]], dtype=torch.float64, device=dev)
+
+    def arrival(tile, fn=A.weighted_sum):
+        return [fn(st["data"], w, scales=st["scales"], qchunk=st["qchunk"],
+                   acc=a, tile_dtype=tile) for st, a in zip(stacks, accs)]
+
+    for tile in ("float32", "float64"):
+        got = arrival(tile)
+        want = arrival(tile, A.weighted_sum_plain)
+        check(all(torch.equal(g.view(torch.int64), t.view(torch.int64))
+                  for g, t in zip(got, want)),
+              f"shard arrival {tile} tiles: kernel != twin")
+        del got, want
+    f64_arrival_ms = event_ms(lambda: arrival("float64"), reps=10)
+    f32_arrival_ms = event_ms(lambda: arrival("float32"), reps=10)
+    plain_ms = event_ms(lambda: arrival("float32", A.weighted_sum_plain),
+                        reps=2)
+    bound_ms, bound_by = wsum_arrival_bound(n, -(-n // 1024), len(live))
+    emit("shard_fold_50Mx16", card=card, params=n, clients=CLIENTS,
+         shards=SHARD_COUNT, launches=launches, fold_ms=fold_ms,
+         fold_split_ms=fold_split, fold_cold_ms=cold_ms, numpy_ms=numpy_ms, data_gen_s=data_s,
+         match=True, numpy_match=True, shard_mem_ok=mem_ok,
+         per_shard_acc_bytes=s8.per_shard_acc_bytes(),
+         f32_tiles={"fold_ms": f32_ms, "launches": f32_launches,
+                    "max_abs_diff_vs_f64": f32_err, "rtol": 1e-4,
+                    "atol": 1e-5},
+         arrival={"f64_tiles_ms": f64_arrival_ms,
+                  "f32_tiles_ms": f32_arrival_ms,
+                  "f32_plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "launches_per_arrival": len(live)})
+    del stacks, accs, s8
+    torch.cuda.empty_cache()
+    return dict(ms=f32_arrival_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, launches=f32_launches,
+                max_abs_diff=0.0, max_abs_diff_vs_f64=f32_err,
+                f64_tiles_ms=f64_arrival_ms,
+                shape=f"one arrival of {n} int8 delta params as "
+                      f"{len(live)} shard launches into fp64 accumulators")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the sparse fold at the benchmark's geometry (100M x 8)
+# ---------------------------------------------------------------------------
+#: benchmarks/run.py::_sparse_delta_case: 100M parameters as 400 leaves of
+#: 250,000, 8 clients reusing one result, weights 10 + i, seed 13
+SPARSE_PARAMS, SPARSE_CLIENTS = 100_000_000, 8
+#: (index mode, fraction of coordinates that travel); ranges mode keeps the
+#: first fraction of every leaf, an adapter's layout
+SPARSE_RUNS = (("coo", 1e-3), ("coo", 1e-2), ("ranges", 1e-3))
+
+
+def scatter_bound(nnz: int, slice_dest: bool, q8: bool, nscales: int):
+    """(ms, bound_by) for one ``scatter_wsum`` launch: each value (1 B int8
+    or 4 B fp32), its index (8 B, none for a slice) and its scales read
+    once, and the fp64 accumulator read and written at its destination
+    (16 B), against HBM; or a multiply and an add a coordinate against the
+    fp64 rate."""
+    nbytes = nnz * ((1 if q8 else 4) + (0 if slice_dest else 8) + 16) \
+        + nscales * 4
+    return _bound(nbytes, 2 * nnz)
+
+
+def phase_sparse_fold(dev, card: str):
+    """Slice 5's sparse path: FedAvg on the torch backend folds eight 0xF5
+    deltas (the TopK COO mode at 1e-3 and 1e-2, and the adapter ranges
+    mode) through ``scatter_wsum`` into the card's accumulator, finalize on
+    the card.  Gates: bitwise the numpy engine; within the int8 bound
+    (``match_tol``) of the dense fp32 fold of the masked update.  Then the
+    kernel per launch at the COO 1e-3 span, by CUDA events, beside its
+    bound, its twin and ``index_add_`` (the scatter part alone)."""
+    from repro_torch.fl.flat import FlatParams, topk_indices
+    from repro_torch.fl.messages import (FitRes, decode_fit_res,
+                                         encode_fit_res)
+    from repro_torch.fl.strategy import make_strategy
+    from repro_torch.kernels import agg_reduce as A
+
+    nleaves = SPARSE_PARAMS // LEAF
+    rng = np.random.default_rng(13)
+    t0 = time.perf_counter()
+    model = [rng.normal(0, 0.5, (LEAF,)).astype(np.float32)
+             for _ in range(nleaves)]
+    result = [m + rng.normal(0, 1e-3, (LEAF,)).astype(np.float32)
+              for m in model]
+    base = FlatParams.from_arrays(model)
+    data_s = time.perf_counter() - t0
+    weights = [10 + i for i in range(SPARSE_CLIENTS)]
+
+    split = {}
+
+    def fold(frame, backend, dense=False):
+        st = make_strategy("fedavg", backend=backend,
+                           device=dev if backend == "torch" else None)
+        acc = st.fit_accumulator(1, model)
+        t0 = time.perf_counter()
+        for c in range(SPARSE_CLIENTS):
+            r = decode_fit_res(frame)
+            r.num_examples = weights[c]
+            if not dense:
+                r.sparse.base = base
+            acc.add(f"site-{c:02d}", r)
+        split["arrivals_ms"] = (time.perf_counter() - t0) * 1e3
+        # the sparse deltas fold in finalize, in canonical node order
+        split["finalize_ms"], out = sync_ms(lambda: acc.finalize([])[0])
+        return out
+
+    rows, timing = {}, None
+    for mode, frac in SPARSE_RUNS:
+        if mode == "coo":
+            mag = np.abs(np.concatenate(result) - np.concatenate(model))
+            idx = topk_indices(mag, max(1, int(np.ceil(frac * base.layout
+                                                       .total_size))))
+            del mag
+            keep = np.zeros(base.layout.total_size, bool)
+            keep[idx] = True
+            masked = [np.where(keep[i * LEAF:(i + 1) * LEAF], r, m)
+                      for i, (m, r) in enumerate(zip(model, result))]
+            ranges = None
+            del keep, idx
+        else:
+            per = int(frac * LEAF)
+            ranges = [(i * LEAF, i * LEAF + per) for i in range(nleaves)]
+            masked = [np.concatenate((r[:per], m[per:]))
+                      for m, r in zip(model, result)]
+        frame = encode_fit_res(FitRes(result, 0, {}), codec="sparse",
+                               base=base, sparse_frac=frac,
+                               sparse_ranges=ranges)
+        sp = decode_fit_res(frame).sparse
+        A.LAUNCHES["scatter_wsum"] = 0
+        cold_ms, _ = sync_ms(lambda: fold(frame, "torch"))
+        launches = A.LAUNCHES["scatter_wsum"]
+        check(launches > 0, f"sparse {mode} {frac}: no scatter_wsum launch")
+        fold_ms, got = sync_ms(lambda: fold(frame, "torch"))
+        fold_split = dict(split)
+        t0 = time.perf_counter()
+        want = fold(frame, "numpy")
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        check(all(a.tobytes() == b.tobytes() for a, b in zip(got, want)),
+              f"sparse {mode} {frac}: torch fold != numpy engine")
+        dense = encode_fit_res(FitRes(masked, 0, {}), codec="flat")
+        dense_ms, out32 = sync_ms(lambda: fold(dense, "torch", dense=True))
+        del dense, masked
+        tol = 0.5 * float(sp.scales.max()) * (1 + 1e-5) + 1e-6
+        err = max(float(np.abs(a.astype(np.float64)
+                               - b.astype(np.float64)).max())
+                  for a, b in zip(out32, got))
+        check(err <= tol, f"sparse {mode} {frac}: |sparse - dense| = {err} "
+                          f"> {tol}")
+        rows[f"{mode}_{frac}"] = {
+            "nnz": sp.nnz, "launches": launches, "fold_ms": fold_ms,
+            "fold_split_ms": fold_split, "fold_cold_ms": cold_ms, "numpy_ms": numpy_ms,
+            "dense_fold_ms": dense_ms, "max_err": err, "tol": tol,
+            "match_tol": True, "numpy_match": True,
+            "wire_mb": len(frame) / 1e6}
+        if timing is None:
+            timing = _scatter_timing(dev, sp)
+            timing["launches"] = launches
+        del frame, sp, got, want, out32
+    emit("sparse_fold_100Mx8", card=card, params=SPARSE_PARAMS,
+         clients=SPARSE_CLIENTS, data_gen_s=data_s, runs=rows,
+         kernel=timing)
+    torch.cuda.empty_cache()
+    return timing
+
+
+def _scatter_timing(dev, sp):
+    """One launch at the main path's span (a whole COO delta on one
+    accumulator): the kernel itself through its C entry point (the
+    wrapper's checks and copies left out), the wrapper as the fold calls
+    it (host indices checked and copied), the twin, and ``index_add_`` of
+    the precomputed contributions (the scatter part alone)."""
+    from repro_torch.kernels import agg_reduce as A
+
+    n = sp.layout.total_size
+    acc = torch.zeros(n, dtype=torch.float64, device=dev)
+    vals = A.to_device(sp.values, dev)
+    scales = A.to_device(sp.scales, dev)
+    host_idx = A._host_tensor(sp.indices)
+    idx = host_idx.to(dev)
+    w = 13.0
+    want = acc.clone()
+    A.scatter_wsum_plain(want, idx, vals, w, scales=scales)
+    got = acc.clone()
+    A.scatter_wsum(got, host_idx, vals, w, scales=scales)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int64), want.view(torch.int64)),
+          "scatter_wsum at the main path's span: kernel != twin")
+    lib = A._kernel_lib("scatter_wsum")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def kernel():
+        err = lib.repro_scatter_wsum(
+            got.data_ptr(), idx.data_ptr(), 0, vals.data_ptr(), 1,
+            scales.data_ptr(), sp.qchunk, 0, w, sp.nnz, stream)
+        check(err == 0, f"scatter_wsum launch: CUDA error {err}")
+
+    ms = event_ms(kernel, reps=50)
+    wrapper_ms = event_ms(lambda: A.scatter_wsum(got, host_idx, vals, w,
+                                                 scales=scales), reps=20)
+    plain_ms = event_ms(lambda: A.scatter_wsum_plain(
+        got, idx, vals, w, scales=scales), reps=5)
+    contrib = (vals.float() * scales[torch.arange(
+        sp.nnz, device=dev) // sp.qchunk]).double() * w
+    torch.use_deterministic_algorithms(False)
+    try:
+        library_ms = event_ms(lambda: got.index_add_(0, idx, contrib),
+                              reps=50)
+    finally:
+        torch.use_deterministic_algorithms(True)
+    bound_ms, bound_by = scatter_bound(sp.nnz, False, True, sp.scales.size)
+    del acc, got, want, contrib
+    return dict(ms=ms, plain_ms=plain_ms, wrapper_ms=wrapper_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_diff=0.0,
+                library_note="index_add_ of precomputed fp64 contributions: "
+                             "the scatter part alone",
+                shape=f"{sp.nnz} int8 values at unique indices into {n} "
+                      f"fp64")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: SecAgg on the quickstart, and the secagg_mask kernel's times
+# ---------------------------------------------------------------------------
+def _pair_seed(a: str, b: str) -> int:
+    import zlib
+
+    lo, hi = sorted([a, b])
+    return zlib.crc32(f"{lo}|{hi}".encode())
+
+
+def phase_secagg_slice():
+    """The 3-site quickstart with ``SecAggMod`` on every client and
+    ``SecAggFedAvg`` on the torch backend (the mod-2^64 sum on the card),
+    clients fitting on the card: native == FLARE bitwise, final parameters
+    within 1e-3 of plain FedAvg; then one FedAvg round with ``[DPMod,
+    TopKCompressionMod]`` composed on every client."""
+    from repro_torch.fl import (DPMod, FedAvg, SecAggFedAvg, SecAggMod,
+                                TopKCompressionMod)
+    from repro_torch.kernels import agg_reduce
+
+    def secagg(site):
+        return [SecAggMod(site=site, peers=SITES,
+                          pairwise_seed_fn=_pair_seed)]
+
+    t0 = time.perf_counter()
+    native = _history(None, "torch", flare=False, strategy=SecAggFedAvg(),
+                      mods=secagg)
+    flare = _history(None, "torch", flare=True, strategy=SecAggFedAvg(),
+                     mods=secagg)
+    secagg_s = time.perf_counter() - t0
+    check(_same(native, flare), "secagg: native != FLARE")
+    plain = _history(None, "torch", flare=False)
+    delta = max(float(np.abs(a.astype(np.float64) - b.astype(np.float64))
+                      .max()) for a, b in zip(native.final_parameters,
+                                              plain.final_parameters))
+    check(delta < 1e-3, f"secagg vs plain FedAvg: max |d| = {delta}")
+    losses = [l for _, l in native.losses()]
+    check(len(losses) == 3 and all(np.isfinite(losses)),
+          f"secagg: losses {losses}")
+    check([r.metrics.get("secagg") for r in native.rounds] == [1, 1, 1],
+          "secagg: rounds did not aggregate masked shares")
+    agg_reduce.LAUNCHES["weighted_sum"] = 0
+    composed = _history(
+        None, "torch", flare=False, rounds=1,
+        mods=lambda s: [DPMod(clip_norm=5.0, noise_multiplier=0.01,
+                              site_id=SITES.index(s), seed=3),
+                        TopKCompressionMod(fraction=0.5)])
+    launches = agg_reduce.LAUNCHES["weighted_sum"]
+    check(launches > 0, "the DP + TopK round launched no weighted_sum")
+    check(all(np.isfinite(p).all() for p in composed.final_parameters),
+          "DP + TopK: non-finite parameters")
+    metrics = composed.rounds[0].metrics
+    emit("secagg_slice", sites=len(SITES), losses=losses,
+         native_and_flare_s=secagg_s, max_abs_diff_vs_fedavg=delta,
+         composed={"mods": ["DPMod", "TopKCompressionMod"],
+                   "loss": composed.losses()[-1][1],
+                   "weighted_sum_launches": launches,
+                   "num_clients": metrics.get("num_clients")})
+
+
+def secagg_bound(n: int, p: int):
+    """(ms, bound_by): x and the P masks read once and the int32 share
+    written once, against HBM; or its ops (two fp32 multiplies, the round,
+    P adds) against the fp32 rate."""
+    return _bound((8 + 4 * p) * n, (3 + p) * n, FP32_FLOPS)
+
+
+def phase_secagg_timing(dev, card: str):
+    """``secagg_mask`` through its public entry point
+    (``repro_torch.kernels.ops.secagg_mask``, the path of the JAX package's
+    kernel) at the benchmark's shape (N 2**16, P 3, weight 3;
+    benchmarks/run.py:259-263), with its launches counted; then the kernel
+    by CUDA events beside its twin and its bound there and at N 50M, P 15
+    (one client of a 16-client round).  No PyTorch call computes it."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import secagg_mask as SM
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1507)
+    x = torch.randn(1 << 16, device=dev, generator=gen)
+    masks = _int32_masks(gen, 3, 1 << 16, dev)
+    SM.LAUNCHES["secagg_mask"] = 0
+    out = ops.secagg_mask(x, masks, 3.0)
+    torch.cuda.synchronize()
+    launches = SM.LAUNCHES["secagg_mask"]
+    check(launches == 1, f"ops.secagg_mask launched {launches} kernels")
+    check(torch.equal(out, SM.secagg_mask_plain(x, masks, 3.0)),
+          "ops.secagg_mask != twin")
+    rows = {}
+    for n, p in ((1 << 16, 3), SECAGG_BIG):
+        x = torch.randn(n, device=dev, generator=gen)
+        masks = torch.empty((p, n), dtype=torch.int32, device=dev)
+        for i in range(p):
+            masks[i] = _int32_masks(gen, 1, n, dev)[0]
+        got = SM.secagg_mask(x, masks, 3.0)
+        check(torch.equal(got, SM.secagg_mask_plain(x, masks, 3.0)),
+              f"secagg_mask != twin at N={n} P={p}")
+        del got
+        bound_ms, bound_by = secagg_bound(n, p)
+        rows[f"{n}x{p}"] = dict(
+            ms=event_ms(lambda: SM.secagg_mask(x, masks, 3.0), reps=20),
+            plain_ms=event_ms(lambda: SM.secagg_mask_plain(x, masks, 3.0),
+                              reps=2),
+            bound_ms=bound_ms, bound_by=bound_by)
+        del x, masks
+    torch.cuda.empty_cache()
+    emit("secagg_timing", card=card, launches=launches, shapes=rows)
+    head = rows[f"{1 << 16}x3"]
+    return dict(head, launches=launches, library_ms=None, max_abs_diff=0.0,
+                at_50M_P15=rows["{}x{}".format(*SECAGG_BIG)],
+                shape="N 65536, P 3 (the benchmark's), weight 3")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -1327,6 +1902,9 @@ def main() -> int:
     gram_diff = phase_gram_vs_twin(dev)
     flash_diff = phase_flash_vs_twin(dev)
     rglru_diff = phase_rglru_vs_twin(dev)
+    secagg_diff = phase_secagg_vs_twin(dev)
+    phase_wsum_f32_vs_twin(dev)
+    scatter_diff = phase_scatter_vs_twin(dev)
     phase_mixed_round(dev)
     launches = phase_slice()
     robust_launches = phase_robust_slice()
@@ -1337,11 +1915,21 @@ def main() -> int:
     rg_launches = phase_serve_recurrentgemma(dev, card)
     flash_rg = phase_flash_timing(dev, card, FLASH_SERVE_RG, seed=4096)
     rglru = phase_rglru_timing(dev, card)
+    f32_tile = phase_shard_fold(dev, card)
+    scatter = phase_sparse_fold(dev, card)
+    phase_secagg_slice()
+    secagg = phase_secagg_timing(dev, card)
     src = "src_torch/repro_torch/kernels/csrc/"
     lines = [
+        # the fp32-tile mode (the sharded fold's tile_dtype="float32") under
+        # "f32_tile": its launches are the sharded fold's at 50M x 16
         dict(name="weighted_sum", source=src + "weighted_sum.cu",
              replaces="src/repro/kernels/agg_reduce.py:200",
-             launches=launches, max_abs_diff=max_diff, **row),
+             launches=launches, max_abs_diff=max_diff,
+             f32_tile=dict(f32_tile, route="cuda",
+                           replaces="src/repro/kernels/agg_reduce.py:92-118,"
+                                    " :174-197, :223-232",
+                           max_abs_err=f32_tile["max_abs_diff"]), **row),
         dict(name="sort_reduce", source=src + "sort_reduce.cu",
              replaces="src/repro/kernels/agg_reduce.py:283",
              launches=robust_launches["sort_reduce"],
@@ -1367,11 +1955,21 @@ def main() -> int:
              replaces="src/repro/kernels/rglru_scan.py:51",
              launches=rg_launches["rglru_scan"], max_abs_diff=rglru_diff,
              **rglru),
+        # launches: the sparse fold's at 100M x 8 (COO 1e-3); the times at
+        # that run's span
+        dict(scatter, name="scatter_wsum", source=src + "scatter_wsum.cu",
+             replaces="src/repro/kernels/agg_reduce.py:396",
+             max_abs_diff=max(scatter_diff, scatter["max_abs_diff"])),
+        # launches: the public entry point at the benchmark's shape; the
+        # times there, and at 50M x 15 masks under "at_50M_P15"
+        dict(secagg, name="secagg_mask", source=src + "secagg_mask.cu",
+             replaces="src/repro/kernels/secagg_mask.py:36",
+             max_abs_diff=max(secagg_diff, secagg["max_abs_diff"])),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "max_abs_diff", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "launches_by_path", "hd256",
-            "eager_scan_ms")
+            "eager_scan_ms", "f32_tile", "wrapper_ms", "at_50M_P15")
     out = []
     for k in lines:
         k = dict(k, route="cuda", max_abs_err=k["max_abs_diff"],

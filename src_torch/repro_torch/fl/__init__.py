@@ -17,3 +17,6 @@ from repro_torch.fl.strategy import (  # noqa: F401
                                      FedAvgM, FedProx, FedMedian, FedTrimmedMean, Krum, make_strategy,
                                      weighted_average,
                                      )
+from repro_torch.fl.mods import (  # noqa: F401
+                                 DPMod, SecAggMod, SecAggFedAvg, TopKCompressionMod,
+                                 )

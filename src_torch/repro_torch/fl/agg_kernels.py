@@ -50,29 +50,33 @@ The contract:
 - the torch path reduces on the given device through the hand-written
   CUDA kernels of :mod:`repro_torch.kernels.agg_reduce` for a CUDA device,
   their plain PyTorch twins for the CPU: ``weighted_sum`` (weighted mean,
-  streaming fold), ``sort_reduce`` (median, trimmed mean) and ``gram``
-  (Krum's distances).  The first two are **bitwise** equal to the numpy
-  path (no FMA contraction, clients or sorted rows added in order, numpy's
-  +0.0 start of a sum); ``tests/test_torch_agg.py`` and
-  ``tests/test_torch_robust.py`` hold them to it across layouts, dtypes,
-  codecs (0xF1/0xF2/0xF3 incl. int8 deltas) and client counts.  Krum's
-  distances match to a tolerance and its selection exactly;
+  streaming and sharded folds, finalize's deferred bases),
+  ``scatter_wsum`` (the 0xF5 sparse fold), ``sort_reduce`` (median,
+  trimmed mean) and ``gram`` (Krum's distances).  All but ``gram`` are
+  **bitwise** equal to the numpy path (no FMA contraction, clients or
+  sorted rows added in order, numpy's +0.0 start of a sum);
+  ``tests/test_torch_agg.py``, ``tests/test_torch_robust.py``,
+  ``tests/test_torch_shard_agg.py`` and ``tests/test_torch_sparse.py``
+  hold them to it across layouts, dtypes, codecs (0xF1/0xF2/0xF3 incl.
+  int8 deltas, 0xF4, 0xF5), shard counts and client counts.  Krum's
+  distances match to a tolerance and its selection exactly; the sharded
+  fold's opt-in fp32 tiles to a relative tolerance;
 - the torch path never reduces on the host.  A round whose clients differ
   in codec, dtype, int8 scale window or delta base folds as one launch
   per run of consecutive like clients, each run continuing the previous
   one's accumulator (the numpy path's order, so still bitwise); the
   robust reductions need the whole stack in one launch and raise on such
   a round instead (ROADMAP queue 1, item 17);
-- what has no kernel yet raises ``NotImplementedError`` on the torch
-  backend, naming its ROADMAP item, and never runs numpy silently:
-  integer-domain payloads (SecAgg's uint64 shares), the sharded fold and
-  the sparse fold.
+- integer-domain payloads (SecAgg's uint64 shares) have no weighted sum
+  and raise ``NotImplementedError`` on the torch backend; SecAgg's
+  wrapping sum folds them (``fl/mods.py``).
 """
 from __future__ import annotations
 
 import os
 import queue
 import threading
+from dataclasses import replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -174,26 +178,35 @@ def resolve_shards(shards: Optional[int], mesh=None) -> int:
     return int(sizes.get("data", mesh.devices.size))
 
 
-def _tile(fp) -> TileSource:
+def _tile(fp, lo: int = 0, hi: Optional[int] = None) -> TileSource:
     """One payload's kernel operands (a :class:`~repro_torch.fl.flat
-    .TileSource`).  A payload the kernel cannot take raises: the torch
-    backend never folds on the host."""
+    .TileSource`), of its element range ``[lo, hi)`` when ``hi`` is given
+    (the sharded fold's shard ranges).  A payload the kernel cannot take
+    raises: the torch backend never folds on the host."""
     if getattr(fp, "is_sparse", False):
-        raise _not_ported("the 0xF5 sparse fold", 8)
+        raise TypeError(
+            "a 0xF5 sparse delta has no dense rows: it folds through "
+            "StreamingWeightedSum.add_sparse (the scatter_wsum kernel)")
     ts = getattr(fp, "tile_source", None)
     if ts is None:
         raise TypeError(
             f"{type(fp).__name__} has no tile_source(): the torch backend "
             "folds FlatParams and QuantParams payloads; use backend='numpy'")
-    src = ts()
+    src = ts() if hi is None else ts(lo, hi)
     if src is not None:
         return src
-    if getattr(fp, "is_delta", False):
+    if getattr(fp, "is_delta", False) and getattr(fp, "base", None) is None:
         raise ValueError(
             "delta-encoded payload needs its round base attached "
             "(QuantParams.base) before it can be read")
-    raise _not_ported(f"folding {fp.layout.uniform_dtype} payloads (integer "
-                      "domains such as SecAgg's uint64 shares)", 9)
+    if getattr(fp, "mode", None) == "q8" and lo % fp.qchunk:
+        raise ValueError(
+            f"the int8 scale windows of {fp.qchunk} elements straddle the "
+            f"range edge at {lo}")
+    raise NotImplementedError(
+        f"the torch backend's weighted sum folds float payloads, not "
+        f"{fp.layout.uniform_dtype} ones; SecAgg's uint64 shares fold in "
+        "SecAggFedAvg's wrapping sum (fl/mods.py); use backend='numpy'")
 
 
 def _launch_runs(sources: Sequence[TileSource]) -> List[Tuple[int, int]]:
@@ -437,23 +450,36 @@ class StreamingWeightedSum:
     ``f64_chunk`` (delta payloads reconstructed per arrival).  On the
     torch backend each arrival is one fused dequantize+scale+accumulate
     kernel launch, and the accumulator is **one fp64 tensor on the
-    device, kept for the whole round** (zeros, as in the numpy path);
-    it comes back to the host once, at :meth:`finalize` or
-    :meth:`raw_sum`.  An arrival the kernel cannot take raises (see
-    :func:`_tile`).
+    device, kept for the whole round** (zeros, as in the numpy path).
+    An arrival the kernel cannot take raises (see :func:`_tile`).
 
-    **Sharded (``shards=N`` or ``mesh=...``)** — numpy backend only (the
-    torch backend raises; ROADMAP item 7).  The round's accumulator
+    **Sharded (``shards=N`` or ``mesh=...``)** — the round's accumulator
     splits into N contiguous qchunk-aligned ranges (:func:`shard_bounds`
     over the mesh "data" axis), so per-shard memory is ~1/N of the
     single-host fp64 footprint; the all-gather into the output buffer
     happens once, at :meth:`finalize`.  Delta payloads are folded
     **base-deferred**: sum_k w_k (d_k + b) == sum_k w_k d_k + W b, so the
     fold streams only the compressed delta and the fp64 base is read once
-    per round at finalize instead of once per arrival.  Decode/reduce
-    overlap: a decoder thread (:class:`_DecodePipeline`) decodes arrival
+    per round at finalize instead of once per arrival.  On the numpy
+    backend a decoder thread (:class:`_DecodePipeline`) decodes arrival
     k+1 while the caller's thread reduces arrival k (auto-enabled on
-    multi-core hosts; ``overlap`` forces it).
+    multi-core hosts; ``overlap`` forces it).  On the torch backend each
+    shard's fp64 accumulator is a tensor on ``mesh.devices[si % len]``
+    (on ``device`` without a mesh), and every arrival folds each shard's
+    range through ``weighted_sum`` on ``tile_source(lo, hi)``, the base
+    deferred; the launches return before the device folds, so the host
+    decodes the next arrival meanwhile (``overlap`` does not apply).
+    ``tile_dtype="float32"`` folds those arrivals with fp32 tiles and the
+    fp64 carry (the reference's TPU scheme; a relative tolerance, not
+    bitwise); None and "float64" keep fp64 tiles.  Partial sums (0xF4)
+    and the deferred bases always fold in fp64.
+
+    On the torch backend sparse arrivals (0xF5) scatter into the same
+    device accumulators through ``scatter_wsum``, and :meth:`finalize` /
+    :meth:`raw_sum` finish on the device in the numpy engine's op order
+    (``acc *= 1/W``, then each deferred base at ``w_b/W`` in token
+    order, then the cast) before the one copy back to the host: the
+    torch backend never folds on the host.
 
     Numerics: the sharded fold is bitwise-invariant across shard counts
     and overlap on/off (pure elementwise ops in arrival order).  It is
@@ -467,7 +493,8 @@ class StreamingWeightedSum:
     def __init__(self, layout: Layout, backend: Optional[str] = None,
                  device=None, *,
                  shards: Optional[int] = None, mesh=None,
-                 overlap: Optional[bool] = None):
+                 overlap: Optional[bool] = None,
+                 tile_dtype: Optional[str] = None):
         self.layout = layout
         self.backend = resolve_backend(backend)
         # delta-base memo, memo_token(base) -> fp64 materialization (a
@@ -482,40 +509,54 @@ class StreamingWeightedSum:
         self.count = 0
         self.shards = resolve_shards(shards, mesh)
         self.mesh = mesh
+        # the sharded torch fold's tile type (the numpy engine ignores it)
+        self.tile_dtype = tile_dtype or "float64"
+        if self.tile_dtype not in ("float64", "float32"):
+            raise ValueError(f"tile_dtype must be 'float64' or 'float32', "
+                             f"got {tile_dtype!r}")
         self.device = None
-        if self.backend == "torch":
-            if self.shards:
-                raise _not_ported("the sharded fold (shards=/mesh=)", 7)
-            from repro_torch.device import resolve_device
-
-            self.device = resolve_device(device)
-        # torch backend: the device-resident accumulator (None once it is
-        # brought back to the host into ``_acc``)
+        # torch backend: the device-resident accumulator(s), None once the
+        # fold has ended (finalize / raw_sum)
         self._dacc = None
+        self._dsacc: Optional[List[Any]] = None
         # deferred delta bases: token -> [base object, summed weight].
         # Sharded dense deltas and sparse deltas (both modes) fold
         # base-deferred: sum_k w_k (d_k + b) == sum_k w_k d_k + W b
         self._deferred: Dict[str, list] = {}
+        self._pipe = None
+        self._acc = None
+        self._sacc: Optional[List[np.ndarray]] = None
+        if self.backend == "torch":
+            import torch
+
+            from repro_torch.device import resolve_device
+
+            devs = ([resolve_device(d) for d in mesh.devices.flat]
+                    if mesh is not None else [resolve_device(device)])
+            self.device = devs[0]
         if self.shards:
             self._bounds = shard_bounds(layout.total_size, self.shards,
                                         align=QCHUNK)
-            self._sacc: List[Optional[np.ndarray]] = [
-                np.zeros(hi - lo, np.float64) for lo, hi in self._bounds]
-            use_pipe = (layout.total_size > 0
-                        and (overlap if overlap is not None
-                             else _host_cores() > 1))
-            self._pipe = _DecodePipeline(self._bounds) if use_pipe else None
-            self._acc = None
+            if self.backend == "torch":
+                self._sdev = [devs[si % len(devs)]
+                              for si in range(len(self._bounds))]
+                self._dsacc = [torch.zeros(hi - lo, dtype=torch.float64,
+                                           device=dev)
+                               for (lo, hi), dev in zip(self._bounds,
+                                                        self._sdev)]
+            else:
+                self._sacc = [np.zeros(hi - lo, np.float64)
+                              for lo, hi in self._bounds]
+                use_pipe = (layout.total_size > 0
+                            and (overlap if overlap is not None
+                                 else _host_cores() > 1))
+                self._pipe = (_DecodePipeline(self._bounds) if use_pipe
+                              else None)
         elif self.backend == "torch":
-            import torch
-
-            self._acc = None
             self._dacc = torch.zeros(layout.total_size, dtype=torch.float64,
                                      device=self.device)
-            self._pipe = None
         else:
             self._acc = np.zeros(layout.total_size, np.float64)
-            self._pipe = None
         self.overlap = self._pipe is not None
 
     # ------------------------------------------------------------ shared
@@ -534,6 +575,7 @@ class StreamingWeightedSum:
         sw = np.float64(w)
         n = self.layout.total_size
         if self.backend == "torch":
+            self._live()
             if n:
                 self._fold_torch(_tile(fp), sw)
         else:
@@ -556,9 +598,16 @@ class StreamingWeightedSum:
         ``scale`` (async staleness discount) also multiplies the
         contributed weight: ``total_w += scale * W_e``.  On the torch
         backend the fp64 sum folds through the same kernel as a one-row
-        fp64 stack (``acc + S_e * scale``, the numpy rounding)."""
+        fp64 stack (``acc + S_e * scale``, the numpy rounding), per shard
+        when sharded, always with fp64 tiles."""
         sw = np.float64(scale)
-        if self.shards:
+        if self.shards and self.backend == "torch":
+            self._live()
+            for si, (lo, hi) in enumerate(self._bounds):
+                if hi > lo:
+                    self._fold_shard(si, TileSource("float", ps.data[lo:hi]),
+                                     sw, "float64")
+        elif self.shards:
             if self._pipe is not None:
                 # ride the decode pipeline so the (arrival, shard) fold
                 # order stays the serial order
@@ -574,6 +623,7 @@ class StreamingWeightedSum:
                         np.multiply(x, sw, out=self._scratch[:b - a])
                         acc[a - lo:b - lo] += self._scratch[:b - a]
         elif self.backend == "torch":
+            self._live()
             if self.layout.total_size:
                 self._fold_torch(TileSource("float", ps.data), sw)
         else:
@@ -593,11 +643,12 @@ class StreamingWeightedSum:
         dequant(values)`` — O(nnz) per arrival, never a model-size
         densify.  The round base is **deferred** (recorded at its summed
         weight and applied chunk-streamed at :meth:`finalize` /
-        :meth:`raw_sum`), exactly like the sharded dense-delta fold.
-        Numpy backend only: the torch backend raises until the
-        ``scatter_wsum`` kernel is ported (ROADMAP item 8)."""
+        :meth:`raw_sum`), exactly like the sharded dense-delta fold.  On
+        the torch backend each span of traveled coordinates is one
+        ``scatter_wsum`` launch into the device accumulator (bitwise the
+        numpy chain)."""
         if self.backend == "torch":
-            raise _not_ported("the 0xF5 sparse fold (add_sparse)", 8)
+            self._live()
         self._record_base(sp, w)
         sw = np.float64(w)
         if self.shards:
@@ -605,10 +656,18 @@ class StreamingWeightedSum:
                 # keep the (arrival, shard) fold order serial: queued
                 # dense decodes fold before this sparse arrival
                 self._pipe.drain(self._fold_item)
+            staged: Dict[Any, Any] = {}
             for si, (lo, hi) in enumerate(self._bounds):
                 if hi <= lo:
                     continue
-                self._scatter_spans(sp, lo, hi, self._sacc[si], sw)
+                if self.backend == "torch":
+                    self._scatter_spans_torch(sp, lo, hi, self._dsacc[si],
+                                              sw, staged)
+                else:
+                    self._scatter_spans(sp, lo, hi, self._sacc[si], sw)
+        elif self.backend == "torch":
+            self._scatter_spans_torch(sp, 0, self.layout.total_size,
+                                      self._dacc, sw, {})
         else:
             self._scatter_spans(sp, 0, self.layout.total_size,
                                 self._acc_vec(), sw)
@@ -631,6 +690,30 @@ class StreamingWeightedSum:
                 buf = sp.dequant_packed(q0, q1, self._tmp)
                 np.multiply(buf, sw, out=self._scratch[:q1 - q0])
                 acc[d] += self._scratch[:q1 - q0]
+
+    def _scatter_spans_torch(self, sp, lo: int, hi: int, acc, sw: np.float64,
+                             staged: Dict[Any, Any]) -> None:
+        """The torch backend's :meth:`_scatter_spans`: one ``scatter_wsum``
+        launch per span into the device accumulator ``acc`` (indexed
+        relative to ``lo``), in place.  The packed values and scales go to
+        ``acc``'s device once per arrival (``staged`` keeps them per
+        device); coo indices are checked on the host and copied with their
+        launch."""
+        from repro_torch.kernels import agg_reduce
+
+        dev = acc.device
+        for p0, p1, dest in sp.iter_spans(lo, hi):
+            if dev not in staged:
+                staged[dev] = (
+                    agg_reduce.to_device(sp.values, dev),
+                    None if sp.scales is None
+                    else agg_reduce.to_device(sp.scales, dev))
+            vals, scales = staged[dev]
+            d = dest.start if isinstance(dest, slice) \
+                else agg_reduce._host_tensor(dest)
+            agg_reduce.scatter_wsum(acc, d, vals[p0:p1], float(sw),
+                                    scales=scales, qchunk=sp.qchunk,
+                                    pos0=p0)
 
     def _apply_deferred(self, acc: np.ndarray, denom: float) -> None:
         """Add every deferred round base at ``summed_weight / denom``,
@@ -664,11 +747,20 @@ class StreamingWeightedSum:
             raise ValueError(
                 "raw_sum() is single-host only: edge pre-reduction keeps "
                 "one local accumulator, sharded state is for the root")
+        if self.backend == "torch":
+            from repro_torch.kernels import agg_reduce
+
+            a = self._close_torch(self._end_torch()[0], 0,
+                                  self.layout.total_size, None, 1.0)
+            self._acc = agg_reduce.to_host(a)
+            return self._acc
         acc = self._acc_vec()
         self._apply_deferred(acc, 1.0)
         return acc
 
     def finalize(self) -> FlatParams:
+        if self.backend == "torch":
+            return self._finalize_torch()
         if self.shards:
             return self._finalize_sharded()
         acc = self._acc_vec()
@@ -686,28 +778,100 @@ class StreamingWeightedSum:
 
     # ------------------------------------------------- single-host mode
     def _acc_vec(self) -> np.ndarray:
-        """The single-host accumulator on the host; on the torch backend
-        the device accumulator is brought back and retired first (at
-        finalize or raw_sum, which end the fold)."""
-        if self._dacc is not None:
-            from repro_torch.kernels import agg_reduce
-
-            self._acc = agg_reduce.to_host(self._dacc)
-            self._dacc = None
+        """The numpy backend's single-host accumulator."""
         return self._acc
 
     def _fold_torch(self, src, w: np.float64) -> None:
         """One kernel launch: ``acc + w * decode(src)`` on the device."""
         from repro_torch.kernels import agg_reduce
 
-        if self._dacc is None:
-            raise RuntimeError("the fold has ended (finalize/raw_sum)")
         stack = _device_stack([src], self.device, self._base_memo)
         self._dacc = agg_reduce.weighted_sum(
             stack["data"],
             agg_reduce.to_device(np.array([w], np.float64), self.device),
             scales=stack["scales"], qchunk=stack["qchunk"],
             base=stack["base"], acc=self._dacc)
+
+    # ------------------------------------------------------ torch backend
+    def _live(self) -> None:
+        if self._dacc is None and self._dsacc is None:
+            raise RuntimeError("the fold has ended (finalize/raw_sum)")
+
+    def _end_torch(self) -> List[Any]:
+        """The device accumulator(s) — one, or one per shard — taken out of
+        the fold, which ends here."""
+        self._live()
+        accs = [self._dacc] if self._dsacc is None else self._dsacc
+        self._dacc = self._dsacc = None
+        return accs
+
+    def _fold_shard(self, si: int, src: TileSource, w: np.float64,
+                    tile_dtype: str) -> None:
+        """``acc_si + w * decode(src)`` on shard ``si``'s device (the base
+        deferred: ``src`` carries none)."""
+        from repro_torch.kernels import agg_reduce
+
+        dev = self._sdev[si]
+        stack = _device_stack([src], dev, {})
+        self._dsacc[si] = agg_reduce.weighted_sum(
+            stack["data"], agg_reduce.to_device(np.array([w], np.float64),
+                                                dev),
+            scales=stack["scales"], qchunk=stack["qchunk"],
+            acc=self._dsacc[si], tile_dtype=tile_dtype)
+
+    def _close_torch(self, a, lo: int, hi: int, inv, denom: float):
+        """Finish the range ``[lo, hi)`` of the fold on ``a``'s device in
+        the numpy engine's op order: ``a *= inv`` (unless None), then each
+        deferred base at ``summed_weight / denom`` in token order, each
+        one ``weighted_sum`` launch with fp64 tiles continuing ``a``."""
+        from repro_torch.kernels import agg_reduce
+
+        if inv is not None:
+            a.mul_(float(inv))
+        for tok in sorted(self._deferred):
+            bobj, bw = self._deferred[tok]
+            src = _tile(bobj, lo, hi)
+            base = None
+            if src.base is not None:        # a base that is itself a delta
+                base = agg_reduce.to_device(src.base.f64_chunk(
+                    lo, hi, np.empty(hi - lo, np.float64)), a.device)
+            stack = _device_stack([replace(src, base=None)], a.device, {})
+            a = agg_reduce.weighted_sum(
+                stack["data"], agg_reduce.to_device(
+                    np.array([bw / denom], np.float64), a.device),
+                scales=stack["scales"], qchunk=stack["qchunk"], base=base,
+                acc=a)
+        return a
+
+    def _finalize_torch(self) -> FlatParams:
+        """``acc/W`` (+ deferred bases) on the device per range, then the
+        cast and one copy back per range: a uniform fp32 layout is cast
+        on the device, fp64 comes back as it is, and every other layout
+        comes back in fp64 and is cast leaf by leaf on the host, as the
+        numpy engine casts it."""
+        from repro_torch.kernels import agg_reduce
+        import torch
+
+        inv = np.float64(1.0 / self.total_w)
+        accs = self._end_torch()
+        bounds = self._bounds if self.shards else \
+            ((0, self.layout.total_size),)
+        out = FlatParams.zeros(self.layout)
+        n = self.layout.total_size
+        u = self.layout.uniform_dtype
+        direct = u in ("float32", "float64")
+        ovec = out.math_view() if direct else np.empty(n, np.float64)
+        for a, (lo, hi) in zip(accs, bounds):
+            if hi <= lo:
+                continue
+            a = self._close_torch(a, lo, hi, inv, self.total_w)
+            if u == "float32":
+                a = a.to(torch.float32)
+            ovec[lo:hi] = agg_reduce.to_host(a)
+        self._deferred.clear()
+        if not direct:
+            _scatter_leaves(ovec, self.layout, out)
+        return out
 
     # ------------------------------------------------------ sharded mode
     @staticmethod
@@ -741,6 +905,18 @@ class StreamingWeightedSum:
         self._sacc[si] += buf[:m]
 
     def _add_sharded(self, fp, w: float) -> None:
+        if self.backend == "torch":
+            self._live()
+            # every shard's operands first: a payload the kernel cannot
+            # take raises before any shard has folded it
+            srcs = [(si, _tile(fp, lo, hi))
+                    for si, (lo, hi) in enumerate(self._bounds) if hi > lo]
+            self._record_base(fp, w)
+            for si, src in srcs:
+                # base deferred to finalize even when attached
+                self._fold_shard(si, replace(src, base=None),
+                                 np.float64(w), self.tile_dtype)
+            return
         self._record_base(fp, w)
         dec = self._decoder(fp)
         sw = np.float64(w)

@@ -679,7 +679,7 @@ def topk_indices(mag: np.ndarray, k: int) -> np.ndarray:
     strictly above the k-th magnitude, then fills the remaining slots with
     the **lowest-index** elements equal to it — exactly k indices, bitwise
     reproducible across runs and platforms.  Shared by the 0xF5 encoder
-    and the TopK compression mod (``fl/mods.py``, not ported yet).
+    and the TopK compression mod (``fl/mods.py``).
     """
     mag = np.ravel(mag)
     k = int(k)
@@ -724,7 +724,7 @@ class SparseDelta:
     .StreamingWeightedSum.add_sparse>`).  :meth:`tile_source` returns
     ``None`` by design — a data-dependent scatter has no tile structure
     for the stacked ``weighted_sum`` kernel; the sparse fold is the numpy
-    scatter (its device kernel, ``scatter_wsum``, is not ported yet).
+    scatter, or on the torch backend the ``scatter_wsum`` kernel.
     """
 
     is_delta = True      # always encoded vs the round-start parameters

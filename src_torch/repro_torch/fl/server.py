@@ -57,7 +57,8 @@ class ServerConfig:
     # (per-shard memory ~1/agg_shards of the single-host fp64 footprint,
     # all-gather at finalize).  None keeps the single-host reference
     # state.  ``shard_mesh`` instead derives the count from its "data"
-    # axis.  Numpy backend only for now (StreamingWeightedSum).
+    # axis and, on the torch backend, places each shard's accumulator on
+    # its devices (StreamingWeightedSum).
     agg_shards: Optional[int] = None
     shard_mesh: Optional[Any] = None
     # fleet sampling: draw sample_k of the connected nodes each round

@@ -319,7 +319,9 @@ class FedAvg(Strategy):
     # ~1/shards of the single-host fp64 footprint, folded by its own
     # per-shard fold.  None/0 keeps the single-host reference state.
     # ``shard_mesh`` (any object with ``axis_names`` and ``devices``)
-    # derives the count from its "data" axis.  Numpy backend only.
+    # derives the count from its "data" axis; on the torch backend shard
+    # i's accumulator lives on ``shard_mesh.devices[i % len]`` (see
+    # repro_torch.launch.mesh.make_agg_mesh), else on ``device``.
     # ServerConfig.agg_shards / shard_mesh set these fleet-wide.
     shards: Optional[int] = None
     shard_mesh: Optional[Any] = None

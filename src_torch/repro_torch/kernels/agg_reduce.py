@@ -1,18 +1,25 @@
 """The server's aggregation reductions as hand-written Hopper kernels.
 
 Three kernels over a (clients, N) payload stack, each replacing a Pallas
-TPU kernel of ``repro/kernels/agg_reduce.py``; each CUDA source carries
-its note on what bounds it and how:
+TPU kernel of ``repro/kernels/agg_reduce.py``, and the sparse scatter
+fold; each CUDA source carries its note on what bounds it and how:
 
 - :func:`weighted_sum` (``csrc/weighted_sum.cu``, replaces ``:200``):
   ``(acc +) sum_c w[c] * decode(data[c])`` in fp64 — FedAvg's weighted
-  sum, the streaming arrival-order fold and Krum's final mean.
+  sum, the streaming arrival-order fold and Krum's final mean.  With
+  ``tile_dtype="float32"`` (the reference's fp32 tiles, which its sharded
+  fold selects) the decode and the weight product round in fp32 and only
+  the carry is fp64; that mode is held to a tolerance against the fp64
+  one, and bitwise against its own twin.
 - :func:`sort_reduce` (``csrc/sort_reduce.cu``, replaces ``:283``): per
   column, the median of the C decoded values, or the sum of the sorted
   rows ``[trim_k, C - trim_k)`` (FedMedian, FedTrimmedMean; the caller
   divides).
 - :func:`gram` (``csrc/gram.cu``, replaces ``:339``): Krum's (C, C) fp64
   Gram matrix of the stack centred on row 0.
+- :func:`scatter_wsum` (``csrc/scatter_wsum.cu``, replaces ``:396``, which
+  is an XLA graph plus a host scatter rather than a ``pallas_call``):
+  ``acc[dest] += w * dequant(vals)`` in place, the 0xF5 sparse fold.
 
 For each:
 
@@ -20,7 +27,8 @@ For each:
   ``sm_90a`` at first use, see :mod:`repro_torch.kernels._build`) or
   raises.  It never falls back.
 - On a CPU tensor it runs the plain PyTorch twin (``*_plain``).
-- ``weighted_sum`` and ``sort_reduce`` are **bitwise** equal to the numpy
+- ``weighted_sum`` (fp64 tiles), ``sort_reduce`` and ``scatter_wsum`` are
+  **bitwise** equal to the numpy
   engine (:mod:`repro_torch.fl.agg_kernels`, ``backend="numpy"``): int8
   payloads dequantize as ``f64(f32(q * scale))``, every other float
   widens exactly, a delta payload adds its fp64 base, one rounding per
@@ -56,7 +64,10 @@ DEFAULT_QCHUNK = 1024
 MAX_CLIENTS = 64
 
 #: kernel launches per wrapper; the main path's runs read these
-LAUNCHES = {"weighted_sum": 0, "sort_reduce": 0, "gram": 0}
+LAUNCHES = {"weighted_sum": 0, "sort_reduce": 0, "gram": 0,
+            "scatter_wsum": 0}
+
+TILE_DTYPES = ("float64", "float32")
 
 _NAN = float("nan")
 
@@ -126,19 +137,35 @@ def _decoded_plain(data: torch.Tensor, scales: Optional[torch.Tensor],
     return torch.stack(rows)
 
 
+def _decode32_plain(row: torch.Tensor, srow: Optional[torch.Tensor],
+                    qchunk: int) -> torch.Tensor:
+    """One row as fp32 tiles decode it: int8 as ``f32(q * scale)``, every
+    float payload cast to fp32 (fp64 rounds)."""
+    if row.dtype == torch.int8:
+        s = srow.repeat_interleave(qchunk)[:row.numel()]
+        return row.to(torch.float32) * s
+    return row.to(torch.float32)
+
+
 def weighted_sum_plain(data: torch.Tensor, weights: torch.Tensor, *,
                        scales: Optional[torch.Tensor] = None,
                        qchunk: int = DEFAULT_QCHUNK,
                        base: Optional[torch.Tensor] = None,
-                       acc: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel's arithmetic in eager PyTorch, one op per rounding."""
+                       acc: Optional[torch.Tensor] = None,
+                       tile_dtype: str = "float64") -> torch.Tensor:
+    """The kernel's arithmetic in eager PyTorch, one op per rounding.
+    fp32 tiles: ``f64(decode32(row) * f32(w))`` added to the fp64 carry."""
     a = acc
     for c in range(data.shape[0]):
-        v = _decode_plain(data[c], None if scales is None else scales[c],
-                          qchunk)
-        if base is not None:
-            v = v + base
-        v = v * weights[c]
+        srow = None if scales is None else scales[c]
+        if tile_dtype == "float32":
+            v = (_decode32_plain(data[c], srow, qchunk)
+                 * weights[c].to(torch.float32)).to(torch.float64)
+        else:
+            v = _decode_plain(data[c], srow, qchunk)
+            if base is not None:
+                v = v + base
+            v = v * weights[c]
         a = v if a is None else a + v
     return a.clone() if a is acc else a
 
@@ -180,6 +207,30 @@ def gram_plain(data: torch.Tensor, *, scales: Optional[torch.Tensor] = None,
     for a in range(data.shape[0]):
         g[a] = (t[a] * t).sum(dim=1)
     return g
+
+
+def scatter_wsum_plain(acc: torch.Tensor, dest, vals: torch.Tensor,
+                       w: float, *, scales: Optional[torch.Tensor] = None,
+                       qchunk: int = DEFAULT_QCHUNK, pos0: int = 0) -> None:
+    """The kernel's arithmetic in eager PyTorch, in place, one op per
+    rounding: ``r = f64(f32(q * scale[(pos0 + i) // qchunk]))`` (or the
+    fp32 value widened), ``acc[d] = acc[d] + r * w``.  ``dest`` is a start
+    offset (the slice ``acc[dest:dest + nnz]``) or an index tensor."""
+    n = vals.numel()
+    if n == 0:
+        return
+    if vals.dtype == torch.int8:
+        idx = torch.div(pos0 + torch.arange(n, device=vals.device), qchunk,
+                        rounding_mode="floor")
+        r = (vals.to(torch.float32) * scales[idx]).to(torch.float64)
+    else:
+        r = vals.to(torch.float64)
+    r = r * float(w)
+    if isinstance(dest, int):
+        seg = acc[dest:dest + n]
+        seg.copy_(seg + r)
+    else:
+        acc[dest] = acc[dest] + r
 
 
 # ---------------------------------------------------------------------------
@@ -256,15 +307,24 @@ def weighted_sum(data: torch.Tensor, weights: torch.Tensor, *,
                  scales: Optional[torch.Tensor] = None,
                  qchunk: int = DEFAULT_QCHUNK,
                  base: Optional[torch.Tensor] = None,
-                 acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 acc: Optional[torch.Tensor] = None,
+                 tile_dtype: str = "float64") -> torch.Tensor:
     """``(acc +) sum_c weights[c] * decode(data[c])`` as one fused pass.
 
     ``data``: (C, N) payload stack; ``weights``: (C,) fp64; ``scales``:
     (C, ceil(N/qchunk)) fp32, given exactly when ``data`` is int8;
     ``base``: shared (N,) fp64 round-start vector of delta payloads;
     ``acc``: (N,) fp64 running accumulator the C rows fold into.  All on
-    one device.  Returns a new (N,) fp64 tensor.
+    one device.  ``tile_dtype="float32"`` decodes and weights each element
+    in fp32 and adds it to the fp64 carry; it takes no ``base``.  Returns a
+    new (N,) fp64 tensor.
     """
+    if tile_dtype not in TILE_DTYPES:
+        raise ValueError(f"tile_dtype must be one of {TILE_DTYPES}, got "
+                         f"{tile_dtype!r}")
+    if tile_dtype == "float32" and base is not None:
+        raise ValueError("tile_dtype='float32' requires base=None "
+                         "(defer the delta base to finalize)")
     c, n = _check_stack(data, scales, qchunk, base)
     dev = data.device
     _check(weights, "weights", (c,), torch.float64, dev)
@@ -273,7 +333,8 @@ def weighted_sum(data: torch.Tensor, weights: torch.Tensor, *,
         raise ValueError("an empty stack needs an accumulator")
     if not _on_cuda(dev, "weighted_sum"):
         return weighted_sum_plain(data, weights, scales=scales,
-                                  qchunk=qchunk, base=base, acc=acc)
+                                  qchunk=qchunk, base=base, acc=acc,
+                                  tile_dtype=tile_dtype)
     if n == 0 or c == 0:
         return acc.clone() if acc is not None else \
             torch.empty(0, dtype=torch.float64, device=dev)
@@ -284,7 +345,7 @@ def weighted_sum(data: torch.Tensor, weights: torch.Tensor, *,
         err = lib.repro_weighted_sum(
             _KIND[data.dtype], data.data_ptr(), _ptr(scales), int(qchunk),
             _nscales(scales), _ptr(base), _ptr(acc), weights.data_ptr(),
-            out.data_ptr(), c, n, stream)
+            out.data_ptr(), c, n, int(tile_dtype == "float32"), stream)
     _launched("weighted_sum", err)
     return out
 
@@ -351,16 +412,101 @@ def gram(data: torch.Tensor, *, scales: Optional[torch.Tensor] = None,
     return out
 
 
+def _slice_start(dest, nnz: int) -> int:
+    """The start offset of a ``slice`` (step 1) or int destination."""
+    if isinstance(dest, slice):
+        if dest.step not in (None, 1):
+            raise ValueError(f"dest slice must have step 1, got {dest}")
+        start = 0 if dest.start is None else int(dest.start)
+        if dest.stop is not None and int(dest.stop) - start != nnz:
+            raise ValueError(f"dest {dest} does not hold {nnz} values")
+        return start
+    return int(dest)
+
+
+def scatter_wsum(acc: torch.Tensor, dest, vals: torch.Tensor, w: float, *,
+                 scales: Optional[torch.Tensor] = None,
+                 qchunk: int = DEFAULT_QCHUNK, pos0: int = 0) -> None:
+    """``acc[dest] += w * dequant(vals)`` in place — the 0xF5 sparse fold.
+
+    ``acc``: (M,) fp64 accumulator, updated in place.  ``dest``: a start
+    offset or a ``slice`` (step 1) — the run ``acc[d0:d0 + nnz]`` — or a
+    (nnz,) int64 tensor of unique indices into ``acc``.  ``vals``: (nnz,)
+    int8 with ``scales``, the fp32 scales of the whole packed value stream
+    (value ``i`` uses ``scales[(pos0 + i) // qchunk]``), or (nnz,) fp32.
+    ``vals``, ``scales`` and an index tensor may lie on the CPU while
+    ``acc`` lies on the card: they are checked there and copied to
+    ``acc``'s device.  Every destination is checked to lie inside ``acc``
+    before anything is launched (an index tensor already on the card costs
+    one synchronising min/max).  ``nnz = 0`` launches nothing.
+    """
+    if acc.dim() != 1 or acc.dtype != torch.float64 \
+            or not acc.is_contiguous():
+        raise ValueError("acc must be a contiguous 1-D fp64 tensor")
+    if vals.dim() != 1 or not vals.is_contiguous():
+        raise ValueError("vals must be a contiguous 1-D tensor")
+    nnz = vals.numel()
+    q8 = vals.dtype == torch.int8
+    if not q8 and vals.dtype != torch.float32:
+        raise TypeError(f"vals must be int8 or float32, got {vals.dtype}")
+    if q8:
+        if scales is None or scales.dim() != 1 \
+                or scales.dtype != torch.float32 \
+                or not scales.is_contiguous():
+            raise ValueError("int8 vals need 1-D contiguous fp32 scales")
+        if qchunk < 1 or pos0 < 0:
+            raise ValueError(f"qchunk={qchunk}, pos0={pos0}")
+        if nnz and (pos0 + nnz - 1) // qchunk >= scales.numel():
+            raise ValueError(f"scales ({scales.numel()}) do not cover "
+                             f"packed positions [{pos0}, {pos0 + nnz})")
+    elif scales is not None:
+        raise ValueError("scales are only for int8 vals")
+    if isinstance(dest, torch.Tensor):
+        if dest.dim() != 1 or dest.dtype != torch.int64 \
+                or dest.numel() != nnz or not dest.is_contiguous():
+            raise ValueError("dest must be a contiguous (nnz,) int64 "
+                             "tensor")
+        if nnz:
+            lo, hi = (int(v) for v in torch.aminmax(dest))
+            if lo < 0 or hi >= acc.numel():
+                raise IndexError(f"dest indices [{lo}, {hi}] outside acc "
+                                 f"of {acc.numel()}")
+        d0 = 0
+    else:
+        d0 = _slice_start(dest, nnz)
+        if d0 < 0 or d0 + nnz > acc.numel():
+            raise IndexError(f"dest [{d0}, {d0 + nnz}) outside acc of "
+                             f"{acc.numel()}")
+    if nnz == 0:
+        return
+    dev = acc.device
+    vals = vals.to(dev)
+    scales = None if scales is None else scales.to(dev)
+    index = dest.to(dev) if isinstance(dest, torch.Tensor) else None
+    if not _on_cuda(dev, "scatter_wsum"):
+        return scatter_wsum_plain(acc, d0 if index is None else index, vals,
+                                  w, scales=scales, qchunk=qchunk, pos0=pos0)
+    lib = _kernel_lib("scatter_wsum")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_scatter_wsum(
+            acc.data_ptr(), _ptr(index), d0, vals.data_ptr(), int(q8),
+            _ptr(scales), int(qchunk), int(pos0), float(w), nnz, stream)
+    _launched("scatter_wsum", err)
+
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signature of each library's entry points: name -> (argtypes, restype)
 _SIGNATURES = {
     "weighted_sum": {"repro_weighted_sum": (
-        [_I, _P, _P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P], _I)},
+        [_I, _P, _P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _I, _P], _I)},
     "sort_reduce": {"repro_sort_reduce": (
         [_I, _P, _P, _LL, _LL, _P, _P, _LL, _LL, _I, _LL, _P], _I)},
     "gram": {"repro_gram": (
         [_I, _P, _P, _LL, _LL, _P, _P, _P, _LL, _LL, _P], _I),
         "repro_gram_blocks": ([_LL], _LL)},
+    "scatter_wsum": {"repro_scatter_wsum": (
+        [_P, _P, _LL, _P, _I, _P, _LL, _LL, ctypes.c_double, _LL, _P], _I)},
 }
 
 

@@ -1,5 +1,6 @@
-"""Plain-torch oracles over whole matrices (port of ``repro/kernels/ref.py``,
-the attention oracle only; the others come with their kernels)."""
+"""Plain-torch oracles over whole matrices (port of ``repro/kernels/ref.py``:
+the attention and SecAgg oracles; the RG-LRU scan's reference is the
+eager scan of ``models/recurrent.py``)."""
 from __future__ import annotations
 
 import torch
@@ -31,3 +32,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
     return ctx.reshape(B, S, H, v.shape[-1])
+
+
+def secagg_mask_ref(x: torch.Tensor, masks: torch.Tensor, weight: float,
+                    quant_bits: int = 16) -> torch.Tensor:
+    """x: (N,) float; masks: (P, N) int32 (signed per peer already applied).
+
+    out = int32 wraparound(sat(round(x * weight * 2^bits)) + sum_p
+    masks[p]), in the reference's precision: the product and the round in
+    fp32, the clip to [-2^31, 2^31 - 1] and the conversion saturating
+    (NaN to 0), the mask sum mod 2^32."""
+    q = torch.round(x.to(torch.float32)
+                    * torch.tensor(weight, dtype=torch.float32)
+                    * float(1 << quant_bits))
+    q = torch.nan_to_num(q.to(torch.float64), nan=0.0, posinf=2.0 ** 31 - 1,
+                         neginf=-(2.0 ** 31))
+    q = q.clamp(-(2.0 ** 31), 2.0 ** 31 - 1).to(torch.int64)
+    total = masks.to(torch.int64).sum(0) if masks.numel() else 0
+    return ((q + total + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)

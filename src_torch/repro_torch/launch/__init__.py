@@ -1,1 +1,2 @@
-"""Launchers of the port (port of ``repro/launch``): the serving launcher."""
+"""Launchers of the port (port of ``repro/launch``): the serving launcher
+and the aggregation mesh."""

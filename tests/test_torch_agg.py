@@ -235,15 +235,15 @@ def test_signed_zero_start_matches_reference():
 
 @pytest.mark.parametrize("what", ["uint64", "no_base"])
 def test_torch_backend_raises_on_payloads_without_a_kernel(what):
-    """Integer-domain shares (SecAgg) have no kernel yet (ROADMAP item 9)
-    and a delta without its base cannot be read: the torch backend raises
-    for both, in the deferred and the streaming fold, and never folds on
-    the host."""
+    """Integer-domain shares (SecAgg) have no weighted sum (SecAggFedAvg
+    folds them in its own wrapping sum) and a delta without its base cannot
+    be read: the torch backend raises for both, in the deferred and the
+    streaming fold, and never folds on the host."""
     if what == "uint64":
         sig = [("uint64", (7,))]
         tl = TF.layout_for(sig)
         p = TF.FlatParams.from_arrays([np.arange(7, dtype=np.uint64)], tl)
-        err, match = NotImplementedError, "item 9"
+        err, match = NotImplementedError, "SecAgg"
     else:
         _, _, tl, port = make_payloads("odd_f32", "q8_delta_flat", 1, seed=33)
         p = port[0]
@@ -296,18 +296,43 @@ def test_sharded_numpy_fold_matches_reference():
 
 
 # ---------------------------------------------------------------------------
-# unported entry points raise on the torch backend
+# the sharded and sparse folds on the torch backend (they raised before
+# slice 5 ported them; tests/test_torch_shard_agg.py and
+# tests/test_torch_sparse.py hold them to the reference in depth)
 # ---------------------------------------------------------------------------
-def test_unported_entry_points_raise_on_torch_backend():
-    """The sharded fold (item 7) and the 0xF5 sparse fold (item 8) have no
-    kernel yet: the torch backend raises for both, naming the item."""
-    rl, ref, tl, port = make_payloads("odd_f32", "flat", 3, seed=70)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TK.StreamingWeightedSum(tl, backend="torch", device="cpu", shards=2)
-    TK.StreamingWeightedSum(tl, backend="numpy", shards=2)  # numpy still runs
-    s = TK.StreamingWeightedSum(tl, backend="torch", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        s.add_sparse(object(), 1.0)
+@pytest.mark.parametrize("shards", [2, 3])
+def test_sharded_torch_fold_matches_the_numpy_engine(shards):
+    """``shards=`` on the torch backend folds (it raised before the port
+    of the sharded fold), bitwise the reference numpy engine's sharded
+    fold."""
+    rl, ref, tl, port = make_payloads("big_unaligned", "q8_delta_quant", 3,
+                                      seed=70)
+    weights = [1.0, 2.0, 3.0]
+    want = _stream(RK, rl, ref, weights, backend="numpy", shards=shards,
+                   overlap=False).finalize()
+    s = _stream(TK, tl, port, weights, backend="torch", device="cpu",
+                shards=shards)
+    assert len(s._dsacc) == shards
+    assert_bitwise(s.finalize(), want)
+
+
+def test_sparse_arrival_folds_on_torch_backend():
+    """``add_sparse`` on the torch backend folds (it raised before the port
+    of ``scatter_wsum``), bitwise the reference numpy engine."""
+    rng = np.random.default_rng(71)
+    n = 3000
+    sig = [("float32", (n,))]
+    rl, tl = RF.layout_for(sig), TF.layout_for(sig)
+    base_vec = rng.normal(0, 0.5, n).astype(np.float32)
+    idx = np.sort(rng.choice(n, 40, replace=False)).astype(np.int64)
+    q, sc = RF.quantize_int8(rng.normal(0, 1e-2, 40).astype(np.float32))
+    rbase = RF.FlatParams.from_arrays([base_vec], rl)
+    tbase = TF.FlatParams.from_arrays([base_vec], tl)
+    want = RK.StreamingWeightedSum(rl, backend="numpy")
+    want.add_sparse(RF.SparseDelta(rl, "coo", idx, q, sc, base=rbase), 2.0)
+    got = TK.StreamingWeightedSum(tl, backend="torch", device="cpu")
+    got.add_sparse(TF.SparseDelta(tl, "coo", idx, q, sc, base=tbase), 2.0)
+    assert_bitwise(got.finalize(), want.finalize())
 
 
 @pytest.mark.parametrize("what", ["median", "trimmed_mean", "krum"])

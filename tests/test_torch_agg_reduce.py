@@ -1,10 +1,12 @@
 """The kernel wrappers of ``repro_torch.kernels.agg_reduce``:
-``weighted_sum``, ``sort_reduce`` and ``gram``.
+``weighted_sum`` (fp64 and fp32 tiles), ``sort_reduce``, ``gram`` and
+``scatter_wsum``.
 
 On a CPU tensor a wrapper runs the plain twin and counts no launch; it
 rejects inputs the kernel does not take; on the card (tests marked
 ``cuda``, skipped elsewhere) the CUDA kernel equals the twin bitwise
-(``weighted_sum``, ``sort_reduce``, NaN and signed-zero columns included)
+(``weighted_sum`` in both tile types, ``sort_reduce``, NaN and signed-zero
+columns included, ``scatter_wsum``)
 or within ``rtol=1e-9`` of it and bitwise equal to itself from launch to
 launch (``gram``).  This file imports only the port, so the ``cuda`` tests
 run on a machine without JAX:
@@ -224,3 +226,159 @@ def test_gram_kernel_matches_plain_twin_on_card(cuda_device, kind, clients):
     torch.cuda.synchronize()
     assert torch.equal(_bits(got), _bits(again))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-9, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# weighted_sum's fp32 tiles and scatter_wsum
+# ---------------------------------------------------------------------------
+def _q8_stack(rng, c, n, qchunk=1024):
+    data = torch.from_numpy(rng.integers(-127, 128, (c, n), dtype=np.int8))
+    scales = torch.from_numpy(10.0 ** rng.uniform(
+        -44, -2, (c, -(-n // qchunk))).astype(np.float32))
+    return data, scales
+
+
+def test_f32_tiles_round_the_decode_and_the_weight_in_fp32():
+    """fp32 tiles: ``f64(f32(q * s) * f32(w))`` added to the fp64 carry,
+    written out by hand; fp64 payloads are narrowed first; a base is
+    refused, as the reference refuses it."""
+    rng = np.random.default_rng(90)
+    data, scales = _q8_stack(rng, 3, 2500)
+    w = torch.from_numpy(rng.uniform(0.1, 2.0, 3))
+    acc = torch.from_numpy(rng.normal(0, 1, 2500))
+    want = acc.clone()
+    for c in range(3):
+        s = scales[c].repeat_interleave(1024)[:2500]
+        want = want + ((data[c].float() * s) * w[c].float()).double()
+    got = agg_reduce.weighted_sum(data, w, scales=scales, acc=acc,
+                                  tile_dtype="float32")
+    assert torch.equal(got, want)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 9)))
+    got = agg_reduce.weighted_sum(x, w[:2], tile_dtype="float32")
+    assert torch.equal(got, (x[0].float() * w[0].float()).double()
+                       + (x[1].float() * w[1].float()).double())
+    with pytest.raises(ValueError, match="base=None"):
+        agg_reduce.weighted_sum(x, w[:2], base=x[0].clone(),
+                                tile_dtype="float32")
+    with pytest.raises(ValueError, match="tile_dtype"):
+        agg_reduce.weighted_sum(x, w[:2], tile_dtype="float16")
+
+
+def test_scatter_wsum_on_cpu_runs_the_twin_and_counts_no_launch():
+    rng = np.random.default_rng(91)
+    acc = torch.from_numpy(rng.normal(0, 1, 5000))
+    vals = torch.from_numpy(rng.integers(-127, 128, 300, dtype=np.int8))
+    scales = torch.from_numpy(rng.uniform(1e-3, 1e-2, 3)
+                              .astype(np.float32))
+    dest = torch.from_numpy(np.sort(rng.choice(5000, 300, replace=False)))
+    want = acc.clone()
+    r = (vals.float() * scales[(700 + torch.arange(300)) // 1024]).double()
+    want[dest] = want[dest] + r * 2.5
+    before = agg_reduce.LAUNCHES["scatter_wsum"]
+    agg_reduce.scatter_wsum(acc, dest, vals, 2.5, scales=scales, pos0=700)
+    assert agg_reduce.LAUNCHES["scatter_wsum"] == before
+    assert torch.equal(acc, want)
+    f = torch.from_numpy(rng.normal(0, 1, 40).astype(np.float32))
+    agg_reduce.scatter_wsum(acc, slice(10, 50), f, 0.5)
+    want[10:50] = want[10:50] + f.double() * 0.5
+    assert torch.equal(acc, want)
+    agg_reduce.scatter_wsum(acc, 3, f[:0], 0.5)        # nnz = 0: a no-op
+    assert torch.equal(acc, want)
+
+
+@pytest.mark.parametrize("bad", ["index_high", "index_low", "slice_end",
+                                 "scales_short", "no_scales", "f32_scales",
+                                 "acc_dtype", "vals_dtype", "dest_len",
+                                 "slice_step"])
+def test_scatter_wsum_refuses_writes_outside_acc_and_bad_operands(bad):
+    acc = torch.zeros(100, dtype=torch.float64)
+    vals = torch.ones(4, dtype=torch.int8)
+    kw = dict(scales=torch.ones(1, dtype=torch.float32))
+    dest = torch.tensor([0, 5, 9, 99])
+    if bad == "index_high":
+        dest = torch.tensor([0, 5, 9, 100])
+    elif bad == "index_low":
+        dest = torch.tensor([-1, 5, 9, 10])
+    elif bad == "slice_end":
+        dest = 97
+    elif bad == "scales_short":
+        kw["pos0"] = 1022
+    elif bad == "no_scales":
+        kw = {}
+    elif bad == "f32_scales":
+        vals = vals.float()
+    elif bad == "acc_dtype":
+        acc = acc.float()
+    elif bad == "vals_dtype":
+        vals = vals.to(torch.int32)
+    elif bad == "dest_len":
+        dest = dest[:3]
+    else:
+        dest = slice(0, 8, 2)
+    before = acc.clone()
+    with pytest.raises((IndexError, TypeError, ValueError)):
+        agg_reduce.scatter_wsum(acc, dest, vals, 1.0, **kw)
+    assert torch.equal(acc, before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "float16", "bfloat16", "float32",
+                                   "float64"])
+@pytest.mark.parametrize("clients", [1, 3, 16])
+@pytest.mark.parametrize("with_acc", [False, True])
+def test_f32_tile_kernel_matches_plain_twin_on_card(cuda_device, dtype,
+                                                    clients, with_acc):
+    """fp32 tiles: bitwise the twin, and within the reference's rtol 1e-4
+    / atol 1e-5 of the fp64 tiles."""
+    rng = np.random.default_rng(100 + clients)
+    n = 3 * 1024 + 77
+    scales = None
+    if dtype == "int8":
+        data, scales = _q8_stack(rng, clients, n)
+    else:
+        data = torch.from_numpy(rng.normal(0, 1, (clients, n))) \
+            .to(getattr(torch, dtype))
+    w = torch.from_numpy(rng.uniform(0.1, 2.0, clients))
+    acc = torch.from_numpy(rng.normal(0, 1, n)) if with_acc else None
+    args = dict(scales=scales, acc=acc)
+    want = agg_reduce.weighted_sum_plain(data, w, tile_dtype="float32",
+                                         **args)
+    dev = {k: None if v is None else v.to(cuda_device)
+           for k, v in args.items()}
+    got = agg_reduce.weighted_sum(data.to(cuda_device), w.to(cuda_device),
+                                  tile_dtype="float32", **dev)
+    f64 = agg_reduce.weighted_sum(data.to(cuda_device), w.to(cuda_device),
+                                  **dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    torch.testing.assert_close(got, f64, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [True, False])
+@pytest.mark.parametrize("nnz", [1, 777, 100_000])
+@pytest.mark.parametrize("slice_dest", [True, False])
+def test_scatter_wsum_kernel_matches_plain_twin_on_card(cuda_device, q8,
+                                                        nnz, slice_dest):
+    rng = np.random.default_rng(nnz)
+    m, pos0 = 1_000_003, 1000          # pos0: windows straddle a qchunk
+    acc = torch.from_numpy(rng.normal(0, 1, m))
+    scales = None
+    if q8:
+        vals = torch.from_numpy(rng.integers(-127, 128, nnz, dtype=np.int8))
+        scales = torch.from_numpy(rng.uniform(
+            1e-4, 1e-2, -(-(pos0 + nnz) // 1024)).astype(np.float32))
+    else:
+        vals = torch.from_numpy(rng.normal(0, 1, nnz).astype(np.float32))
+    dest = 12_345 if slice_dest else torch.from_numpy(
+        np.sort(rng.choice(m, nnz, replace=False)))
+    want = acc.clone()
+    agg_reduce.scatter_wsum_plain(want, dest, vals, 2.5, scales=scales,
+                                  pos0=pos0 if q8 else 0)
+    got = acc.to(cuda_device)
+    before = agg_reduce.LAUNCHES["scatter_wsum"]
+    agg_reduce.scatter_wsum(got, dest, vals, 2.5, scales=scales,
+                            pos0=pos0 if q8 else 0)
+    torch.cuda.synchronize()
+    assert agg_reduce.LAUNCHES["scatter_wsum"] == before + 1
+    assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))

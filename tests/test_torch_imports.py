@@ -32,7 +32,9 @@ EXPECTED = ("repro_torch.fl.agg_kernels", "repro_torch.kernels.agg_reduce",
             "repro_torch.kernels.flash_attention",
             "repro_torch.models.transformer",
             "repro_torch.models.recurrent", "repro_torch.kernels.rglru_scan",
-            "repro_torch.configs.recurrentgemma_2b")
+            "repro_torch.configs.recurrentgemma_2b",
+            "repro_torch.kernels.secagg_mask", "repro_torch.kernels.ops",
+            "repro_torch.fl.mods", "repro_torch.launch.mesh")
 
 
 def test_importing_every_module_loads_no_reference_dependency():
