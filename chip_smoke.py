@@ -6,18 +6,24 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds every CUDA kernel of the port from the sources in the checkout
 (``weighted_sum``, ``sort_reduce``, ``gram``, ``flash_attention``,
-``rglru_scan``, ``scatter_wsum``, ``secagg_mask``: one ``nvcc`` each, all
-started together), holds each kernel against its plain PyTorch twin on
-the card (``rglru_scan``, ``scatter_wsum`` and ``weighted_sum``'s fp32
-tiles bitwise, ``secagg_mask`` exactly), folds a round that mixes codecs
-and bases against the numpy engine, and drives the main paths: the
+``rglru_scan``, ``scatter_wsum``, ``secagg_mask``, ``decode_rows``: one
+``nvcc`` each, all started together), holds each kernel against its plain
+PyTorch twin on the card (``rglru_scan``, ``scatter_wsum``,
+``decode_rows`` and ``weighted_sum``'s fp32 tiles bitwise, ``secagg_mask``
+exactly; ``sort_reduce`` bitwise and ``gram`` to 1e-9 up to 1000 clients,
+``sort_reduce`` also at 20000, in global scratch; flash attention on both
+of its routes, the bf16 tensor-core kernel and the fp32 CUDA-core one),
+folds a round that mixes codecs and bases against the numpy engine (the
+weighted folds, and the robust reductions through ``decode_rows``), and
+drives the main paths: the
 quickstart FedAvg round (slice 1) and the quickstart with the robust
 strategies FedMedian, FedTrimmedMean and Krum on five sites (slice 2),
 each natively and as a FLARE job, clients fitting on the card and the
 server reducing with the kernels; H2O-Danube-1.8B at full width and depth
 serving 4 requests of 4500 prompt tokens and 32 new tokens with flash
-attention in every layer's prefill, against the same model on the eager
-attention path (slice 3); RecurrentGemma-2B at full width and depth
+attention in every layer's prefill (every launch on the tensor-core
+route), against the same model on the eager attention path (slice 3);
+RecurrentGemma-2B at full width and depth
 serving 4 requests of 4096 prompt tokens and 32 new tokens with the
 ``rglru_scan`` kernel in its 18 RG-LRU layers and the flash kernel at
 head dim 256 in its 8 local-attention layers, against the eager paths
@@ -66,7 +72,7 @@ BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
 AGG_KERNELS = ("weighted_sum", "sort_reduce", "gram")
 KERNELS = AGG_KERNELS + ("flash_attention", "rglru_scan", "scatter_wsum",
-                         "secagg_mask")
+                         "secagg_mask", "decode_rows")
 
 SITES = ["site-1", "site-2", "site-3"]
 #: the robust quickstart: five sites, so that FedTrimmedMean(beta=0.2) trims
@@ -76,8 +82,14 @@ ROBUST_SITES = [f"site-{i}" for i in range(1, 6)]
 LEAF, NLEAVES, CLIENTS = 250_000, 200, 16
 
 
+#: the script's start on the host clock; every phase line carries the
+#: seconds since then (``at_s``), so a phase's cost is the difference
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -273,6 +285,19 @@ ROBUST_KINDS = ("int8", "int8_base", "float16", "bfloat16", "float32",
                 "float64")
 ROBUST_CLIENTS = (1, 2, 3, 7, 16, 33, 64)
 ROBUST_N = (6922, 1_000_003)
+#: past the kernels' register path, at the quickstart's N: shared-memory
+#: sorts and the Gram matrix tiled by 64-client blocks
+MANY_CLIENTS = (65, 200, 1000)
+#: a client count whose padded keys (32768 x 8 bytes) do not fit a block's
+#: shared memory: sort_reduce sorts in global scratch; at a small N
+SCRATCH_CASE = (20000, 1000)
+
+
+def _robust_grid():
+    """(kind, C, N) of the robust kernels' checks."""
+    return [(kind, c, n) for kind in ROBUST_KINDS
+            for c in ROBUST_CLIENTS + MANY_CLIENTS
+            for n in (ROBUST_N if c <= 64 else ROBUST_N[:1])]
 
 
 def phase_sort_vs_twin(dev):
@@ -281,28 +306,29 @@ def phase_sort_vs_twin(dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
-    cases = 0
-    for kind in ROBUST_KINDS:
-        for c in ROBUST_CLIENTS:
-            for n in ROBUST_N:
-                data, kw = _robust_inputs(gen, kind, c, n, dev, True)
-                ops = [("median", 0)] + [("trim_sum", k) for k in
-                                         sorted({0, 1, c // 3})
-                                         if c - 2 * k >= 1]
-                for op, k in ops:
-                    got = agg_reduce.sort_reduce(data, kind=op, trim_k=k,
-                                                 **kw)
-                    want = agg_reduce.sort_reduce_plain(data, kind=op,
-                                                        trim_k=k, **kw)
-                    torch.cuda.synchronize()
-                    check(torch.equal(got.view(torch.int64),
-                                      want.view(torch.int64)),
-                          f"sort_reduce != twin: {kind} C={c} N={n} {op} "
-                          f"k={k}")
-                    cases += 1
-                del data, kw
-    emit("sort_reduce_vs_twin", cases=cases, max_abs_diff=0.0, bitwise=True)
-    return 0.0
+    cases, many_ms = 0, {}
+    grid = _robust_grid() + [(kind, *SCRATCH_CASE)
+                             for kind in ("int8_base", "float32")]
+    for kind, c, n in grid:
+        data, kw = _robust_inputs(gen, kind, c, n, dev, True)
+        ops = [("median", 0)] + [("trim_sum", k) for k in
+                                 sorted({0, 1, c // 3}) if c - 2 * k >= 1]
+        for op, k in ops:
+            got = agg_reduce.sort_reduce(data, kind=op, trim_k=k, **kw)
+            want = agg_reduce.sort_reduce_plain(data, kind=op, trim_k=k,
+                                                **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got.view(torch.int64), want.view(torch.int64)),
+                  f"sort_reduce != twin: {kind} C={c} N={n} {op} k={k}")
+            cases += 1
+        if c > 64 and kind == "float32":
+            many_ms[f"{c}x{n}"] = event_ms(lambda: agg_reduce.sort_reduce(
+                data, kind="median", **kw))
+        del data, kw
+    emit("sort_reduce_vs_twin", cases=cases, max_abs_diff=0.0, bitwise=True,
+         clients=sorted({c for _, c, _ in grid}),
+         median_ms_over_64_clients_f32=many_ms)
+    return 0.0, many_ms
 
 
 def phase_gram_vs_twin(dev):
@@ -312,31 +338,31 @@ def phase_gram_vs_twin(dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
-    worst, worst_rel, cases = 0.0, 0.0, 0
-    for kind in ROBUST_KINDS:
-        for c in ROBUST_CLIENTS:
-            for n in ROBUST_N:
-                data, kw = _robust_inputs(gen, kind, c, n, dev, False)
-                got = agg_reduce.gram(data, **kw)
-                again = agg_reduce.gram(data, **kw)
-                want = agg_reduce.gram_plain(data, **kw)
-                torch.cuda.synchronize()
-                check(torch.equal(got.view(torch.int64),
-                                  again.view(torch.int64)),
-                      f"gram differs between launches: {kind} C={c} N={n}")
-                diff = (got - want).abs()
-                worst = max(worst, float(diff.max()))
-                worst_rel = max(worst_rel, float(
-                    (diff / want.abs().clamp_min(1e-300)).max()))
-                check(torch.allclose(got, want, rtol=1e-9, atol=1e-9),
-                      f"gram != twin: {kind} C={c} N={n} "
-                      f"max|d|={float(diff.max())}")
-                cases += 1
-                del data, kw
+    worst, worst_rel, cases, many_ms = 0.0, 0.0, 0, {}
+    for kind, c, n in _robust_grid():
+        data, kw = _robust_inputs(gen, kind, c, n, dev, False)
+        got = agg_reduce.gram(data, **kw)
+        again = agg_reduce.gram(data, **kw)
+        want = agg_reduce.gram_plain(data, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int64), again.view(torch.int64)),
+              f"gram differs between launches: {kind} C={c} N={n}")
+        diff = (got - want).abs()
+        worst = max(worst, float(diff.max()))
+        worst_rel = max(worst_rel, float(
+            (diff / want.abs().clamp_min(1e-300)).max()))
+        check(torch.allclose(got, want, rtol=1e-9, atol=1e-9),
+              f"gram != twin: {kind} C={c} N={n} max|d|={float(diff.max())}")
+        if c > 64 and kind == "float32":
+            many_ms[f"{c}x{n}"] = event_ms(lambda: agg_reduce.gram(data, **kw))
+        cases += 1
+        del data, kw
     emit("gram_vs_twin", cases=cases, max_abs_diff=worst,
          max_rel_diff=worst_rel, rtol=1e-9, atol=1e-9,
-         bitwise_across_launches=True)
-    return worst
+         bitwise_across_launches=True,
+         clients=sorted(ROBUST_CLIENTS + MANY_CLIENTS),
+         ms_over_64_clients_f32=many_ms)
+    return worst, many_ms
 
 
 # ---------------------------------------------------------------------------
@@ -425,8 +451,49 @@ def phase_mixed_round(dev):
         folds[backend] = s.finalize()
     check(folds["torch"].buf.tobytes() == folds["numpy"].buf.tobytes(),
           "mixed round: streaming torch fold != numpy engine")
+    # the robust reductions over the same round, two raw clients holding
+    # signed zeros and NaNs: each run of like clients decoded into its rows
+    # of one fp64 stack on the card (decode_rows), then one sort_reduce or
+    # gram launch; bitwise the numpy engine (Krum: 1e-9, the same order)
+    from repro_torch.kernels import agg_reduce as A
+
+    special = []
+    for i, p in enumerate(pays):
+        if i % 5 == 0:
+            v = p.math_view().copy()
+            v[:64] = rng.choice([-0.0, 0.0], 64)
+            v[64:128] = rng.choice([-0.0, 0.0, 1.0, -1.0], 64)
+            v[rng.integers(128, n, 5)] = np.nan
+            p = F.FlatParams.from_arrays(F.unflatten_vector(v, layout),
+                                         layout)
+        special.append(p)
+    for key in ("decode_rows", "sort_reduce", "gram"):
+        A.LAUNCHES[key] = 0
+    robust = {}
+    for name, fn, args in (("median", K.median, ()),
+                           ("trimmed_mean", K.trimmed_mean, (2,))):
+        got = fn(special, layout, *args, backend="torch", device=dev)
+        want = fn(special, layout, *args, backend="numpy")
+        check(got.buf.tobytes() == want.buf.tobytes(),
+              f"mixed round: {name} on the card != numpy engine")
+        robust[name] = {"bitwise": True,
+                        "nan": int(np.isnan(want.math_view()).sum())}
+    d_t = K.krum_distances(pays, layout, backend="torch", device=dev)
+    d_n = K.krum_distances(pays, layout, backend="numpy")
+    check(np.allclose(d_t, d_n, rtol=1e-9, atol=1e-9)
+          and np.argsort(K.krum_scores(d_t, 1)).tolist()
+          == np.argsort(K.krum_scores(d_n, 1)).tolist(),
+          "mixed round: Krum on the card != numpy engine")
+    robust["krum"] = {"max_abs_diff": float(np.abs(d_t - d_n).max())}
+    launches = {k: A.LAUNCHES[k] for k in ("decode_rows", "sort_reduce",
+                                           "gram")}
+    check(launches == {"decode_rows": 3 * runs, "sort_reduce": 2,
+                       "gram": 1},
+          f"mixed round: robust launches {launches}, want {runs} "
+          f"decode_rows per reduction and one reduction each")
     emit("mixed_round", clients=len(pays), params=n, launch_runs=runs,
-         bitwise=True)
+         bitwise=True, robust=robust, robust_launches=launches)
+    return launches["decode_rows"]
 
 
 def phase_slice():
@@ -811,6 +878,55 @@ def phase_robust_fold(dev):
         "gram": dict(flat["gram"], shape=shape)}
 
 
+def decode_bound(c: int, n: int, itemsize: int, *, base: bool,
+                 nscales: int = 0):
+    """(ms, bound_by) for ``decode_rows``: the stack (+ scales, base) read
+    once and the (C, N) fp64 rows written once, against HBM; its base adds
+    are too few to bind."""
+    nbytes = c * n * itemsize + c * nscales * 4 + c * n * 8 \
+        + (n * 8 if base else 0)
+    return _bound(nbytes, c * n if base else 0)
+
+
+def phase_decode_timing(dev, card: str):
+    """``decode_rows`` at the robust fold's geometry (16 clients x 50M): a
+    mixed round of that size widens each run into the fp64 stack.  fp32
+    payloads (the library yardstick: one ``copy_`` into fp64, the same
+    function) and q8 deltas (no one PyTorch call decodes them)."""
+    from repro_torch.kernels import agg_reduce as A
+
+    n = LEAF * NLEAVES
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    out = torch.empty((CLIENTS, n), dtype=torch.float64, device=dev)
+    rows = {}
+    for kind in ("float32", "int8_base"):
+        data, kw = _robust_inputs(gen, kind, CLIENTS, n, dev, False)
+        got = A.decode_rows(data, out=out, **kw)
+        want = A.decode_rows_plain(data, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int64), want.view(torch.int64)),
+              f"decode_rows != twin at {CLIENTS}x{n} {kind}")
+        del want
+        nsc = 0 if kw["scales"] is None else kw["scales"].shape[1]
+        b_ms, b_by = decode_bound(CLIENTS, n, data.element_size(),
+                                  base=kw["base"] is not None, nscales=nsc)
+        rows[kind] = {
+            "ms": event_ms(lambda: A.decode_rows(data, out=out, **kw)),
+            "plain_ms": event_ms(lambda: A.decode_rows_plain(data, **kw),
+                                 reps=2),
+            "library_ms": (event_ms(lambda: out.copy_(data))
+                           if kind == "float32" else None),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del data, kw
+    del out
+    torch.cuda.empty_cache()
+    emit("decode_timing", card=card, clients=CLIENTS, params=n, rows=rows)
+    return dict(rows["float32"], max_abs_diff=0.0,
+                q8_delta=rows["int8_base"],
+                shape=f"{CLIENTS}x{n} float32 into fp64 rows")
+
+
 # ---------------------------------------------------------------------------
 # phase 6: flash attention, the kernel against its twin (slice 3)
 # ---------------------------------------------------------------------------
@@ -877,19 +993,31 @@ def _flash_cases():
     for f in (FLASH_SERVE, FLASH_SERVE_RG):
         grid.append((f["B"], f["S"], f["H"], f["KV"], f["hd"], f["window"],
                      f["causal"]))
+    # the tensor-core kernel's tile edges (64 keys, 32 at hd 256; 64-row q
+    # blocks): S one past, one short of and between tiles, and windows
+    # whose lower edge falls inside a key tile
+    for hd in (32, 80, 128, 256):
+        for S, window in ((65, 0), (127, 37), (200, 100), (333, 65),
+                          (1000, 257)):
+            grid.append((2, S, 8, 2, hd, window, True))
+        grid.append((1, 200, 4, 4, hd, 37, False))
     return grid
 
 
 def phase_flash_vs_twin(dev):
     """``flash_attention`` against its plain twin (every case) and the
     full-matrix oracle ``flash_attention_ref`` (where its (S, S) scores fit
-    in REF_SCORE_BYTES), in fp32 and bf16, over B x S x (H, KV) x hd x
-    window x causal, S = 4500 (padded to 4608 by the reference's block rule)
-    included, head dim 256 (MQA and GQA, windows up to 2048, S up to
-    4096), and a case with fully masked rows (window < 0)."""
+    in REF_SCORE_BYTES), in fp32 (the CUDA-core route) and bf16 (the
+    tensor-core route), over B x S x (H, KV) x hd x window x causal, S =
+    4500 (padded to 4608 by the reference's block rule) included, head dim
+    256 (MQA and GQA, windows up to 2048, S up to 4096), the tensor-core
+    kernel's tile edges, and a case with fully masked rows (window < 0).
+    Every call must be counted on its dtype's route."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.ref import flash_attention_ref
 
+    for key in FA.LAUNCHES:
+        FA.LAUNCHES[key] = 0
     gen = torch.Generator(device=dev)
     gen.manual_seed(1303)
     worst = {str(dt): {"twin_max_abs": 0.0, "ref_max_abs": 0.0,
@@ -934,9 +1062,18 @@ def phase_flash_vs_twin(dev):
         check(bool((got[:, 63:] == 0).all()) and bool((got[:, :63] != 0).any()),
               f"flash fully-masked rows {dtype}: masked rows are not 0")
         masked += 1
+    per_dtype = cases // 2 + masked // 2
+    routes = {r: FA.LAUNCHES[f"flash_attention.{r}"]
+              for r in FA.ROUTES.values()}
+    check(routes == {"tensor_core": per_dtype, "cuda_core": per_dtype}
+          and FA.LAUNCHES["flash_attention"] == 2 * per_dtype,
+          f"flash: route launches {routes}, want {per_dtype} each")
     emit("flash_vs_twin", cases=cases, ref_cases=ref_cases,
-         fully_masked_cases=masked, worst=worst)
-    return max(w["twin_max_abs"] for w in worst.values())
+         fully_masked_cases=masked, route_launches=routes,
+         worst={str(dt): dict(w, route=FA.flash_route(dt))
+                for dt, w in zip(FLASH_TOL, worst.values())})
+    return {FA.flash_route(dt): w["twin_max_abs"]
+            for dt, w in zip(FLASH_TOL, worst.values())}
 
 
 def band_pairs(S: int, causal: bool, window: int) -> int:
@@ -991,13 +1128,20 @@ def phase_serve(dev, card: str):
     n_params = sum(t.numel() for _, t in iter_leaves(params))
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int64)
-    FA.LAUNCHES["flash_attention"] = 0
+    for key in FA.LAUNCHES:
+        FA.LAUNCHES[key] = 0
     flash = serve(cfg, params, tokens, new_tokens=SERVE_NEW, impl="flash",
                   device=dev)
     launches = FA.LAUNCHES["flash_attention"]
+    routes = {r: FA.LAUNCHES[f"flash_attention.{r}"]
+              for r in FA.ROUTES.values()}
     peak_flash = torch.cuda.max_memory_allocated()
     check(launches == cfg.num_layers,
           f"serve: {launches} flash launches, want {cfg.num_layers}")
+    # the bf16 prefill: every launch on the tensor cores
+    check(routes == {"tensor_core": cfg.num_layers, "cuda_core": 0},
+          f"serve: flash launches by route {routes}, want all "
+          f"{cfg.num_layers} on the tensor cores")
     torch.cuda.reset_peak_memory_stats()
     eager = serve(cfg, params, tokens, new_tokens=SERVE_NEW, impl="eager",
                   device=dev)
@@ -1016,7 +1160,8 @@ def phase_serve(dev, card: str):
          d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
          head_dim=cfg.resolved_head_dim, window=cfg.window,
          batch=SERVE_BATCH, prompt=SERVE_PROMPT, new_tokens=SERVE_NEW,
-         flash_launches=launches, init_s=init_s,
+         flash_launches=launches, flash_launches_by_route=routes,
+         init_s=init_s,
          prefill_ms={"flash": flash.prefill_s * 1e3,
                      "eager": eager.prefill_s * 1e3},
          decode_ms_per_token={
@@ -1048,9 +1193,15 @@ def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
     twin = FA.flash_attention_plain(q, k, v, **args)
     err, exc = _excess(got, twin, FLASH_TOL[torch.bfloat16])
     check(exc <= 1.0, f"flash at the serving shape: |kernel - twin| = {err}")
-    kernel_ms = event_ms(lambda: FA.flash_attention(q, k, v, **args))
+    kernel_ms = event_ms(lambda: FA.flash_attention(q, k, v, **args),
+                         reps=20)
     plain_ms = event_ms(lambda: FA.flash_attention_plain(q, k, v, **args),
                         reps=2)
+    # the fp32 route on the same values (the CUDA-core kernel)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    cuda_core_ms = event_ms(lambda: FA.flash_attention(q32, k32, v32,
+                                                       **args), reps=2)
+    del q32, k32, v32
     S = f["S"]
     qpos = torch.arange(S, device=dev)[:, None]
     kpos = torch.arange(S, device=dev)[None, :]
@@ -1070,16 +1221,22 @@ def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
         f["B"], S, f["H"], f["KV"], f["hd"], f["window"], f["causal"], 2)
     shape = (f"B{f['B']} S{S} H{f['H']}/KV{f['KV']} hd{f['hd']} "
              f"window {f['window']} causal, bf16")
-    emit("flash_timing", card=card, shape=shape, kernel_ms=kernel_ms,
-         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-         bound_by=bound_by, fp32_core_bound_ms=fp32_ms, gflop=flops / 1e9,
-         kernel_tflops=flops / kernel_ms / 1e9, max_abs_diff=err,
+    routes = {"tensor_core": {"dtype": "bfloat16", "ms": kernel_ms,
+                              "tflops": flops / kernel_ms / 1e9},
+              "cuda_core": {"dtype": "float32", "ms": cuda_core_ms,
+                            "tflops": flops / cuda_core_ms / 1e9}}
+    emit("flash_timing", card=card, shape=shape,
+         route=FA.flash_route(q.dtype), kernel_ms=kernel_ms,
+         kernel_tflops=flops / kernel_ms / 1e9, library_ms=library_ms,
+         library_tflops=flops / library_ms / 1e9, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by, fp32_core_bound_ms=fp32_ms,
+         gflop=flops / 1e9, routes=routes, max_abs_diff=err,
          library_max_abs_diff_vs_twin=lib_err)
     del q, k, v, got, twin, lib, mask
     torch.cuda.empty_cache()
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, shape=shape,
-                max_abs_diff=err)
+                routes=routes, max_abs_diff=err)
 
 
 # ---------------------------------------------------------------------------
@@ -1225,7 +1382,8 @@ def phase_serve_recurrentgemma(dev, card: str):
         0, cfg.vocab_size, (RG_BATCH, RG_PROMPT), dtype=np.int64)
 
     counts = lambda: (FA.LAUNCHES["flash_attention"],  # noqa: E731
-                      RS.LAUNCHES["rglru_scan"])
+                      RS.LAUNCHES["rglru_scan"],
+                      FA.LAUNCHES["flash_attention.tensor_core"])
     after_prefill = []
     make_prefill = serve_mod.make_prefill_step
 
@@ -1243,7 +1401,8 @@ def phase_serve_recurrentgemma(dev, card: str):
     try:
         runs, peaks, launches = {}, {}, {}
         for impl in ("flash", "eager"):
-            FA.LAUNCHES["flash_attention"] = 0
+            for key in FA.LAUNCHES:
+                FA.LAUNCHES[key] = 0
             RS.LAUNCHES["rglru_scan"] = 0
             torch.cuda.reset_peak_memory_stats()
             runs[impl] = serve_mod.serve(cfg, params, tokens,
@@ -1252,17 +1411,22 @@ def phase_serve_recurrentgemma(dev, card: str):
             peaks[impl] = torch.cuda.max_memory_allocated()
             pf, total = after_prefill[-1], counts()
             launches[impl] = {
-                "prefill": {"flash_attention": pf[0], "rglru_scan": pf[1]},
+                "prefill": {"flash_attention": pf[0], "rglru_scan": pf[1],
+                            "flash_attention.tensor_core": pf[2]},
                 "decode": {"flash_attention": total[0] - pf[0],
-                           "rglru_scan": total[1] - pf[1]}}
+                           "rglru_scan": total[1] - pf[1],
+                           "flash_attention.tensor_core": total[2] - pf[2]}}
     finally:
         serve_mod.make_prefill_step = make_prefill
     fl = launches["flash"]
-    check(fl["prefill"] == {"flash_attention": n_attn, "rglru_scan": n_rglru}
+    # the bf16 prefill: every flash launch on the tensor cores
+    check(fl["prefill"] == {"flash_attention": n_attn, "rglru_scan": n_rglru,
+                            "flash_attention.tensor_core": n_attn}
           and (n_attn, n_rglru) == (8, 18),
           f"serve_recurrentgemma: flash prefill launches {fl['prefill']}, "
-          f"want 8 flash_attention and 18 rglru_scan")
-    check(fl["decode"] == {"flash_attention": 0, "rglru_scan": 0},
+          f"want 8 flash_attention (all on the tensor cores) and 18 "
+          f"rglru_scan")
+    check(all(v == 0 for v in fl["decode"].values()),
           f"serve_recurrentgemma: decode launched kernels {fl['decode']}")
     ea = launches["eager"]
     check(all(v == 0 for part in ea.values() for v in part.values()),
@@ -1282,15 +1446,19 @@ def phase_serve_recurrentgemma(dev, card: str):
     f32 = {}
     model32 = build_model(cfg.replace(dtype="float32"))
     for impl in ("flash", "eager"):
-        FA.LAUNCHES["flash_attention"] = 0
+        for key in FA.LAUNCHES:
+            FA.LAUNCHES[key] = 0
         RS.LAUNCHES["rglru_scan"] = 0
         step = make_prefill(model32, max_len=RG_PROMPT + RG_NEW, impl=impl)
         f32[impl] = step(params, {"tokens": torch.as_tensor(
             tokens, device=dev)})[0][:, :cfg.vocab_size].float()
         torch.cuda.synchronize()
-        want = (n_attn, n_rglru) if impl == "flash" else (0, 0)
-        check(counts() == want, f"serve_recurrentgemma fp32 {impl}: "
-              f"launches {counts()}, want {want}")
+        # fp32: the flash launches on the CUDA cores
+        want = (n_attn, n_rglru, 0) if impl == "flash" else (0, 0, 0)
+        check(counts() == want
+              and FA.LAUNCHES["flash_attention.cuda_core"] == want[0],
+              f"serve_recurrentgemma fp32 {impl}: launches {counts()}, "
+              f"want {want}")
     err, exc = _excess(f32["flash"], f32["eager"], SERVE_TOL)
     check(exc <= 1.0, f"serve_recurrentgemma: fp32 prefill logits flash vs "
           f"eager |d| = {err}")
@@ -1898,18 +2066,19 @@ def main() -> int:
     dev = torch.device("cuda")
     card = phase_env()
     max_diff = phase_kernel_vs_twin(dev)
-    sort_diff = phase_sort_vs_twin(dev)
-    gram_diff = phase_gram_vs_twin(dev)
+    sort_diff, sort_many = phase_sort_vs_twin(dev)
+    gram_diff, gram_many = phase_gram_vs_twin(dev)
     flash_diff = phase_flash_vs_twin(dev)
     rglru_diff = phase_rglru_vs_twin(dev)
     secagg_diff = phase_secagg_vs_twin(dev)
     phase_wsum_f32_vs_twin(dev)
     scatter_diff = phase_scatter_vs_twin(dev)
-    phase_mixed_round(dev)
+    decode_launches = phase_mixed_round(dev)
     launches = phase_slice()
     robust_launches = phase_robust_slice()
     row = phase_fold(dev)
     robust = phase_robust_fold(dev)
+    decode = phase_decode_timing(dev, card)
     flash_launches = phase_serve(dev, card)
     flash = phase_flash_timing(dev, card)
     rg_launches = phase_serve_recurrentgemma(dev, card)
@@ -1930,26 +2099,42 @@ def main() -> int:
                            replaces="src/repro/kernels/agg_reduce.py:92-118,"
                                     " :174-197, :223-232",
                            max_abs_err=f32_tile["max_abs_diff"]), **row),
+        # past 64 clients (small N, fp32) under "over_64_clients"
         dict(name="sort_reduce", source=src + "sort_reduce.cu",
              replaces="src/repro/kernels/agg_reduce.py:283",
              launches=robust_launches["sort_reduce"],
-             max_abs_diff=sort_diff, **robust["sort_reduce"]),
+             max_abs_diff=sort_diff, over_64_clients=sort_many,
+             **robust["sort_reduce"]),
         dict(name="gram", source=src + "gram.cu",
              replaces="src/repro/kernels/agg_reduce.py:339",
-             launches=robust_launches["gram"],
+             launches=robust_launches["gram"], over_64_clients=gram_many,
              **dict(robust["gram"], max_abs_diff=max(
                  gram_diff, robust["gram"]["max_abs_diff"]))),
-        # launches: the prefills of both serving paths (H2O-Danube, hd 80;
-        # RecurrentGemma, hd 256); the times at danube's shape, and at
-        # RecurrentGemma's under "hd256"
+        # launches: the mixed robust round's (one per run of like clients
+        # and reduction); the times at 16 x 50M (q8 deltas under
+        # "q8_delta")
+        dict(decode, name="decode_rows", source=src + "decode_rows.cu",
+             replaces="src/repro/fl/flat.py:466, :595 (f64_chunk, the "
+                      "numpy engine's per-client decode of a mixed round, "
+                      "src/repro/fl/agg_kernels.py:819 _rowstack)",
+             launches=decode_launches),
+        # launches: the bf16 prefills of both serving paths (H2O-Danube, hd
+        # 80; RecurrentGemma, hd 256), all on the tensor-core route; the
+        # times at danube's shape, and at RecurrentGemma's under "hd256";
+        # per route under "routes" (fp32: the CUDA-core kernel)
         dict(name="flash_attention", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:94",
              launches=flash_launches + rg_launches["flash_attention"],
              launches_by_path={
                  "serve": flash_launches,
                  "serve_recurrentgemma": rg_launches["flash_attention"]},
+             launches_by_route={"tensor_core": flash_launches
+                                + rg_launches["flash_attention.tensor_core"],
+                                "cuda_core": 0},
              hd256=flash_rg,
-             **dict(flash, max_abs_diff=max(flash_diff, flash["max_abs_diff"],
+             max_abs_diff_by_route=flash_diff,
+             **dict(flash, max_abs_diff=max(*flash_diff.values(),
+                                            flash["max_abs_diff"],
                                             flash_rg["max_abs_diff"]))),
         dict(name="rglru_scan", source=src + "rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan.py:51",
@@ -1968,13 +2153,17 @@ def main() -> int:
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "max_abs_diff", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape", "launches_by_path", "hd256",
-            "eager_scan_ms", "f32_tile", "wrapper_ms", "at_50M_P15")
+            "library_ms", "shape", "launches_by_path", "launches_by_route",
+            "routes", "max_abs_diff_by_route", "hd256", "over_64_clients",
+            "q8_delta", "eager_scan_ms", "f32_tile", "wrapper_ms",
+            "at_50M_P15")
     out = []
     for k in lines:
         k = dict(k, route="cuda", max_abs_err=k["max_abs_diff"],
                  ms=k.get("ms", k.get("kernel_ms")))
         out.append({key: k[key] for key in keys if key in k})
+    # the script's own time, the kernels' builds included
+    emit("done", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -651,7 +651,7 @@ class EdgeAggregatorApp:
                 ps = res.partial       # nested edge: continue its sum
                 if acc is None:
                     acc = kernels.StreamingWeightedSum(
-                        ps.layout, self.backend, self.device)
+                        ps.layout, self.backend, device=self.device)
                 acc.add_partial(ps)
                 node_ids.extend(ps.node_ids)
                 failures.extend(ps.failures)
@@ -673,7 +673,7 @@ class EdgeAggregatorApp:
             fp = _flat_of(res)
             if acc is None:
                 acc = kernels.StreamingWeightedSum(fp.layout, self.backend,
-                                                   self.device)
+                                                   device=self.device)
             acc.add(fp, float(res.num_examples))
             node_ids.append(node)
         if want_partial:

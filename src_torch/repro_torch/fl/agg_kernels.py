@@ -40,9 +40,11 @@ Backend dispatch
 ----------------
 Every public kernel takes ``backend="numpy" | "torch" | None`` (None /
 "auto" resolves to :func:`default_backend`: "torch", overridable with
-``REPRO_AGG_BACKEND`` or :func:`set_default_backend`) and a ``device``
-(None means the CUDA card; see :func:`repro_torch.device.resolve_device`).
-The contract:
+``REPRO_AGG_BACKEND`` or :func:`set_default_backend`), then the
+reference's ``block`` in its positional slot (its Pallas column block; the
+CUDA kernels choose their own, so it has no effect here, and a
+non-positive one raises), then a ``device`` (None means the CUDA card; see
+:func:`repro_torch.device.resolve_device`).  The contract:
 
 - the numpy path is the reference, carried over verbatim from the JAX
   package's engine; its arithmetic is frozen (the fig. 5 bitwise-repro
@@ -65,8 +67,9 @@ The contract:
   in codec, dtype, int8 scale window or delta base folds as one launch
   per run of consecutive like clients, each run continuing the previous
   one's accumulator (the numpy path's order, so still bitwise); the
-  robust reductions need the whole stack in one launch and raise on such
-  a round instead (ROADMAP queue 1, item 17);
+  robust reductions decode each run into its rows of one fp64 stack on
+  the device (``decode_rows``) and reduce that stack in one launch, the
+  numpy path's per-client decode, so still bitwise;
 - integer-domain payloads (SecAgg's uint64 shares) have no weighted sum
   and raise ``NotImplementedError`` on the torch backend; SecAgg's
   wrapping sum folds them (``fl/mods.py``).
@@ -126,10 +129,11 @@ def resolve_backend(backend: Optional[str]) -> str:
     return backend
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} has no torch-backend kernel yet (ROADMAP.md queue 1, item "
-        f"{item}); use backend='numpy'")
+def _check_block(block: Optional[int]) -> None:
+    """The reference's ``block``: None, or a positive column block."""
+    if block is not None and int(block) < 1:
+        raise ValueError(f"block must be None or a positive column block, "
+                         f"got {block}")
 
 
 def _host_cores() -> int:
@@ -274,7 +278,7 @@ def _vec_to_flat(vec: np.ndarray, layout: Layout) -> FlatParams:
 
 def weighted_mean(pairs: Sequence[Tuple[FlatParams, float]],
                   layout: Layout, backend: Optional[str] = None,
-                  device=None) -> FlatParams:
+                  block: Optional[int] = None, device=None) -> FlatParams:
     """sum((w_i / W) x_i) over flat buffers -> FlatParams of ``layout``.
 
     Chunk-outer / client-inner: the fp64 accumulator chunk is reused across
@@ -283,6 +287,7 @@ def weighted_mean(pairs: Sequence[Tuple[FlatParams, float]],
     goes to ``device`` and folds in one kernel launch (one per run of like
     clients when the round mixes codecs, see :func:`_launch_runs`).
     """
+    _check_block(block)
     total_w = float(sum(w for _, w in pairs))
     scaled = [np.float64(w / total_w) for _, w in pairs]
     out = FlatParams.zeros(layout)
@@ -491,10 +496,11 @@ class StreamingWeightedSum:
     """
 
     def __init__(self, layout: Layout, backend: Optional[str] = None,
-                 device=None, *,
+                 block: Optional[int] = None, device=None, *,
                  shards: Optional[int] = None, mesh=None,
                  overlap: Optional[bool] = None,
                  tile_dtype: Optional[str] = None):
+        _check_block(block)
         self.layout = layout
         self.backend = resolve_backend(backend)
         # delta-base memo, memo_token(base) -> fp64 materialization (a
@@ -975,35 +981,50 @@ def _rowstack(flats: Sequence[FlatParams], lo: int, hi: int,
     return tile
 
 
-def _robust_stack(flats: Sequence, what: str, device) -> Dict[str, Any]:
+def _robust_stack(flats: Sequence, device) -> Dict[str, Any]:
     """The whole round's (C, N) stack on the device, for a reduction that
-    needs every client in one launch.  A round that :func:`_launch_runs`
-    would split raises: the torch backend never reduces on the host."""
+    needs every client in one launch: the payload stack itself when every
+    client shares codec, dtype, delta base and int8 scale window; else
+    each run of :func:`_launch_runs` decoded by ``decode_rows`` into its
+    rows of one fp64 stack (the numpy engine's per-client decode), which
+    the reduction then takes as float64.  Nothing reduces on the host."""
     from repro_torch.device import resolve_device
-
-    sources = [_tile(fp) for fp in flats]
-    if len(_launch_runs(sources)) > 1:
-        raise _not_ported(
-            f"{what} over a round whose clients differ in codec, payload "
-            "dtype, delta base or int8 scale window", 17)
-    return _device_stack(sources, resolve_device(device), {})
-
-
-def _sort_reduce(flats, what: str, trim_k: int, device) -> np.ndarray:
     from repro_torch.kernels import agg_reduce
 
-    s = _robust_stack(flats, what, device)
+    dev = resolve_device(device)
+    sources = [_tile(fp) for fp in flats]
+    runs = _launch_runs(sources)
+    if len(runs) == 1:
+        return _device_stack(sources, dev, {})
+    import torch
+
+    out = torch.empty((len(sources), sources[0].data.size),
+                      dtype=torch.float64, device=dev)
+    bases: Dict[str, Any] = {}
+    for lo, hi in runs:
+        s = _device_stack(sources[lo:hi], dev, bases)
+        agg_reduce.decode_rows(s["data"], scales=s["scales"],
+                               qchunk=s["qchunk"], base=s["base"], out=out,
+                               row0=lo)
+    return {"data": out, "scales": None, "qchunk": 1, "base": None}
+
+
+def _sort_reduce(flats, kind: str, trim_k: int, device) -> np.ndarray:
+    from repro_torch.kernels import agg_reduce
+
+    s = _robust_stack(flats, device)
     vec = agg_reduce.sort_reduce(
-        s["data"], kind="median" if what == "median" else "trim_sum",
-        trim_k=trim_k, scales=s["scales"], qchunk=s["qchunk"],
-        base=s["base"])
+        s["data"], kind=kind, trim_k=trim_k, scales=s["scales"],
+        qchunk=s["qchunk"], base=s["base"])
     return agg_reduce.to_host(vec)
 
 
 def median(flats: Sequence[FlatParams], layout: Layout,
-           backend: Optional[str] = None, device=None) -> FlatParams:
+           backend: Optional[str] = None, block: Optional[int] = None,
+           device=None) -> FlatParams:
     """Coordinate-wise median, chunk-stacked; on the torch backend one
     ``sort_reduce`` launch over the round's stack on ``device``."""
+    _check_block(block)
     if layout.total_size and flats and resolve_backend(backend) == "torch":
         return _vec_to_flat(_sort_reduce(flats, "median", 0, device),
                             layout)
@@ -1013,15 +1034,16 @@ def median(flats: Sequence[FlatParams], layout: Layout,
 
 def trimmed_mean(flats: Sequence[FlatParams], layout: Layout,
                  k: int, backend: Optional[str] = None,
-                 device=None) -> FlatParams:
+                 block: Optional[int] = None, device=None) -> FlatParams:
     """Mean after trimming the k smallest/largest values per coordinate
     (all values when ``n <= 2k``).  On the torch backend one
     ``sort_reduce`` launch gives the trimmed sum, and the host divides it
     by the row count as ``np.mean`` does."""
+    _check_block(block)
     n = len(flats)
     if layout.total_size and flats and resolve_backend(backend) == "torch":
         k_eff = k if n > 2 * k else 0
-        vec = _sort_reduce(flats, "trimmed_mean", k_eff, device)
+        vec = _sort_reduce(flats, "trim_sum", k_eff, device)
         vec /= n - 2 * k_eff
         return _vec_to_flat(vec, layout)
 
@@ -1051,7 +1073,7 @@ def _coordinatewise(flats, layout, reduce_fn) -> FlatParams:
 
 def krum_distances(flats: Sequence[FlatParams], layout: Layout,
                    backend: Optional[str] = None,
-                   device=None) -> np.ndarray:
+                   block: Optional[int] = None, device=None) -> np.ndarray:
     """(n, n) matrix of pairwise squared L2 distances.
 
     Accumulates the Gram matrix G += X_c X_c^T one (n, CHUNK) fp64 tile at
@@ -1063,11 +1085,12 @@ def krum_distances(flats: Sequence[FlatParams], layout: Layout,
     residual rounding.  On the torch backend one ``gram`` launch over the
     round's stack on ``device`` gives G, and the host expands it.
     """
+    _check_block(block)
     n_clients = len(flats)
     if layout.total_size and flats and resolve_backend(backend) == "torch":
         from repro_torch.kernels import agg_reduce
 
-        s = _robust_stack(flats, "krum_distances", device)
+        s = _robust_stack(flats, device)
         G = agg_reduce.to_host(agg_reduce.gram(
             s["data"], scales=s["scales"], qchunk=s["qchunk"],
             base=s["base"]))

@@ -10,7 +10,8 @@ at import time, so the package imports where there is no ``nvcc``.
 Flags (:func:`flags`): every source builds for ``sm_90a`` (Hopper) without
 ``--use_fast_math`` (subnormals are kept, divides and ``exp2f`` are the
 accurate ones).  The aggregation kernels (``weighted_sum``,
-``sort_reduce``, ``gram``, ``scatter_wsum``), ``secagg_mask`` and
+``sort_reduce``, ``gram``, ``scatter_wsum``, ``decode_rows``),
+``secagg_mask`` and
 ``rglru_scan`` also take ``-fmad=false``: they must round every product and
 sum on its own, because they are held bitwise against the numpy engine or
 their twin.  ``flash_attention`` is held to a tolerance, so it lets
@@ -41,6 +42,7 @@ SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
     "rglru_scan": ("-fmad=false",),
     "scatter_wsum": ("-fmad=false",),
     "secagg_mask": ("-fmad=false",),
+    "decode_rows": ("-fmad=false",),
 }
 
 _LOCK = threading.Lock()

@@ -20,6 +20,10 @@ fold; each CUDA source carries its note on what bounds it and how:
 - :func:`scatter_wsum` (``csrc/scatter_wsum.cu``, replaces ``:396``, which
   is an XLA graph plus a host scatter rather than a ``pallas_call``):
   ``acc[dest] += w * dequant(vals)`` in place, the 0xF5 sparse fold.
+- :func:`decode_rows` (``csrc/decode_rows.cu``): the wire decode alone,
+  a payload stack into rows of an fp64 stack, so that a round whose
+  clients differ in codec or base reaches ``sort_reduce`` and ``gram`` as
+  one float64 stack (the numpy engine decodes such a round per client).
 
 For each:
 
@@ -27,7 +31,8 @@ For each:
   ``sm_90a`` at first use, see :mod:`repro_torch.kernels._build`) or
   raises.  It never falls back.
 - On a CPU tensor it runs the plain PyTorch twin (``*_plain``).
-- ``weighted_sum`` (fp64 tiles), ``sort_reduce`` and ``scatter_wsum`` are
+- ``weighted_sum`` (fp64 tiles), ``sort_reduce``, ``scatter_wsum`` and
+  ``decode_rows`` (up to the payload bits of a NaN) are
   **bitwise** equal to the numpy
   engine (:mod:`repro_torch.fl.agg_kernels`, ``backend="numpy"``): int8
   payloads dequantize as ``f64(f32(q * scale))``, every other float
@@ -43,7 +48,7 @@ For each:
 
 Payload dtypes: ``torch.int8`` (with ``scales`` (C, ceil(N/qchunk)) fp32),
 ``torch.float16``, ``torch.bfloat16``, ``torch.float32``, ``torch.float64``.
-``sort_reduce`` and ``gram`` take 1 to :data:`MAX_CLIENTS` clients.
+``sort_reduce`` and ``gram`` take any number of clients from 1.
 """
 from __future__ import annotations
 
@@ -58,14 +63,9 @@ from repro_torch.fl.flat import is_bf16
 
 DEFAULT_QCHUNK = 1024
 
-#: most clients ``sort_reduce`` and ``gram`` take (their kernels keep a
-#: column's C values in registers, and C(C+1)/2 Gram pairs per block);
-#: lifting it is ROADMAP queue 2
-MAX_CLIENTS = 64
-
 #: kernel launches per wrapper; the main path's runs read these
 LAUNCHES = {"weighted_sum": 0, "sort_reduce": 0, "gram": 0,
-            "scatter_wsum": 0}
+            "scatter_wsum": 0, "decode_rows": 0}
 
 TILE_DTYPES = ("float64", "float32")
 
@@ -135,6 +135,21 @@ def _decoded_plain(data: torch.Tensor, scales: Optional[torch.Tensor],
                           qchunk)
         rows.append(v if base is None else v + base)
     return torch.stack(rows)
+
+
+def decode_rows_plain(data: torch.Tensor, *,
+                      scales: Optional[torch.Tensor] = None,
+                      qchunk: int = DEFAULT_QCHUNK,
+                      base: Optional[torch.Tensor] = None,
+                      out: Optional[torch.Tensor] = None,
+                      row0: int = 0) -> torch.Tensor:
+    """The kernel's arithmetic in eager PyTorch: the decoded stack (delta
+    base added), written to ``out[row0:row0 + C]`` when ``out`` is given."""
+    x = _decoded_plain(data, scales, qchunk, base)
+    if out is None:
+        return x
+    out[row0:row0 + data.shape[0]] = x
+    return out
 
 
 def _decode32_plain(row: torch.Tensor, srow: Optional[torch.Tensor],
@@ -274,10 +289,8 @@ def _check_stack(data: torch.Tensor, scales: Optional[torch.Tensor],
 
 
 def _check_clients(c: int, what: str) -> None:
-    if not 1 <= c <= MAX_CLIENTS:
-        raise ValueError(
-            f"{what} takes 1 to {MAX_CLIENTS} clients (the kernel's cap, "
-            f"MAX_CLIENTS; lifting it is ROADMAP.md queue 2), got {c}")
+    if c < 1:
+        raise ValueError(f"{what} takes at least one client, got {c}")
 
 
 def _on_cuda(dev: torch.device, what: str) -> bool:
@@ -374,12 +387,15 @@ def sort_reduce(data: torch.Tensor, *, kind: str = "median",
     if n == 0:
         return out
     lib = _kernel_lib("sort_reduce")
+    nkeys = lib.repro_sort_reduce_scratch(c, n)
+    scratch = (torch.empty(nkeys, dtype=torch.int64, device=dev)
+               if nkeys else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_sort_reduce(
             _KIND[data.dtype], data.data_ptr(), _ptr(scales), int(qchunk),
-            _nscales(scales), _ptr(base), out.data_ptr(), c, n,
-            int(kind == "median"), int(trim_k), stream)
+            _nscales(scales), _ptr(base), out.data_ptr(), _ptr(scratch), c,
+            n, int(kind == "median"), int(trim_k), stream)
     _launched("sort_reduce", err)
     return out
 
@@ -400,7 +416,7 @@ def gram(data: torch.Tensor, *, scales: Optional[torch.Tensor] = None,
         return torch.zeros((c, c), dtype=torch.float64, device=dev)
     lib = _kernel_lib("gram")
     out = torch.empty((c, c), dtype=torch.float64, device=dev)
-    partial = torch.empty((lib.repro_gram_blocks(n), c * (c + 1) // 2),
+    partial = torch.empty(lib.repro_gram_scratch(c, n),
                           dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -409,6 +425,42 @@ def gram(data: torch.Tensor, *, scales: Optional[torch.Tensor] = None,
             _nscales(scales), _ptr(base), partial.data_ptr(),
             out.data_ptr(), c, n, stream)
     _launched("gram", err)
+    return out
+
+
+def decode_rows(data: torch.Tensor, *, scales: Optional[torch.Tensor] = None,
+                qchunk: int = DEFAULT_QCHUNK,
+                base: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None,
+                row0: int = 0) -> torch.Tensor:
+    """The decoded (C, N) fp64 stack, ``decode(data[c]) (+ base)`` with no
+    other operation (signed zeros kept; a NaN stays a NaN, with the
+    device's payload bits, which the reductions canonicalize), written to
+    rows ``[row0, row0 + C)`` of ``out`` (a contiguous (M, N) fp64 tensor
+    on the data's device) and returned; a new (C, N) tensor when ``out``
+    is None.  Operands as for :func:`weighted_sum`."""
+    c, n = _check_stack(data, scales, qchunk, base)
+    dev = data.device
+    if out is None:
+        out = torch.empty((c, n), dtype=torch.float64, device=dev)
+    if out.dim() != 2 or out.shape[1] != n:
+        raise ValueError(f"out must be (M, {n}), got {tuple(out.shape)}")
+    _check(out, "out", tuple(out.shape), torch.float64, dev)
+    if not 0 <= row0 <= out.shape[0] - c:
+        raise ValueError(f"rows [{row0}, {row0 + c}) are outside out's "
+                         f"{out.shape[0]}")
+    if not _on_cuda(dev, "decode_rows"):
+        return decode_rows_plain(data, scales=scales, qchunk=qchunk,
+                                 base=base, out=out, row0=row0)
+    if n == 0 or c == 0:
+        return out
+    lib = _kernel_lib("decode_rows")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_decode_rows(
+            _KIND[data.dtype], data.data_ptr(), _ptr(scales), int(qchunk),
+            _nscales(scales), _ptr(base), out[row0].data_ptr(), c, n, stream)
+    _launched("decode_rows", err)
     return out
 
 
@@ -501,10 +553,13 @@ _SIGNATURES = {
     "weighted_sum": {"repro_weighted_sum": (
         [_I, _P, _P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _I, _P], _I)},
     "sort_reduce": {"repro_sort_reduce": (
-        [_I, _P, _P, _LL, _LL, _P, _P, _LL, _LL, _I, _LL, _P], _I)},
+        [_I, _P, _P, _LL, _LL, _P, _P, _P, _LL, _LL, _I, _LL, _P], _I),
+        "repro_sort_reduce_scratch": ([_LL, _LL], _LL)},
     "gram": {"repro_gram": (
         [_I, _P, _P, _LL, _LL, _P, _P, _P, _LL, _LL, _P], _I),
-        "repro_gram_blocks": ([_LL], _LL)},
+        "repro_gram_scratch": ([_LL, _LL], _LL)},
+    "decode_rows": {"repro_decode_rows": (
+        [_I, _P, _P, _LL, _LL, _P, _P, _LL, _LL, _P], _I)},
     "scatter_wsum": {"repro_scatter_wsum": (
         [_P, _P, _LL, _P, _I, _P, _LL, _LL, ctypes.c_double, _LL, _P], _I)},
 }

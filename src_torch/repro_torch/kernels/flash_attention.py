@@ -1,10 +1,14 @@
-"""Flash attention (causal / GQA / sliding-window) as a hand-written Hopper
-kernel, replacing the Pallas TPU kernel ``repro/kernels/flash_attention.py:94``.
+"""Flash attention (causal / GQA / sliding-window) as hand-written Hopper
+kernels, replacing the Pallas TPU kernel
+``repro/kernels/flash_attention.py:94``.
 
-- :func:`flash_attention` on a CUDA tensor launches
+- :func:`flash_attention` on a CUDA tensor launches one of two kernels of
   ``csrc/flash_attention.cu`` (built by ``nvcc`` for ``sm_90a`` at first
   use, see :mod:`repro_torch.kernels._build`) or raises; it never falls
-  back.  On a CPU tensor it runs :func:`flash_attention_plain`.
+  back.  The route is chosen by dtype alone (:func:`flash_route`): bf16
+  runs on the tensor cores (``mma.sync`` with fp32 accumulation, P rounded
+  to bf16 for the value product), fp32 on the CUDA cores.  On a CPU tensor
+  it runs :func:`flash_attention_plain`.
 - :func:`flash_attention_plain` is the twin: plain PyTorch in the Pallas
   kernel's arithmetic -- the reference's block rule (:func:`_choose_block`,
   the sequence padded to the blocks' lcm), an fp32 online softmax over kv
@@ -34,10 +38,49 @@ from repro_torch.kernels.ref import NEG_INF
 #: attention configs) and 32 (their smoke variants)
 HEAD_DIMS = (32, 64, 80, 128, 256)
 
-#: kernel launches of the wrapper; the main path's runs read it
-LAUNCHES = {"flash_attention": 0}
+#: the kernel each input dtype runs on the card: bf16 on the tensor cores,
+#: fp32 on the CUDA cores (no bf16 or TF32 product holds fp32's tolerance)
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+
+#: kernel launches of the wrapper, in all and per route; the main path's
+#: runs read them
+LAUNCHES = {"flash_attention": 0,
+            **{f"flash_attention.{r}": 0 for r in ROUTES.values()}}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: a shared-memory row's padding in elements, in the tensor-core kernel
+#: (``tc::`` in ``csrc/flash_attention.cu``)
+TC_PAD = 8
+#: the shared memory one block may use on Hopper, in bytes
+SMEM_LIMIT = 232_448
+
+
+def flash_route(dtype: torch.dtype) -> str:
+    """The route a CUDA tensor of ``dtype`` takes: ``"tensor_core"`` for
+    bf16, ``"cuda_core"`` for fp32; other dtypes raise."""
+    if dtype not in ROUTES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, not "
+                        f"{dtype}")
+    return ROUTES[dtype]
+
+
+def tc_keys(hd: int) -> int:
+    """Keys per K / V tile of the tensor-core kernel at head dim ``hd``."""
+    return 32 if hd > 128 else 64
+
+
+def tc_rows(hd: int) -> int:
+    """Query rows per CTA of the tensor-core kernel at head dim ``hd``:
+    4 warps of two 16-row tiles up to hd 80, of one above."""
+    return 4 * 16 * (2 if hd <= 80 else 1)
+
+
+def tc_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of the tensor-core kernel at head dim ``hd``:
+    the Q block and two stages of K and V tiles, bf16 rows padded by
+    :data:`TC_PAD` elements (``tc::smem_bytes``)."""
+    return (tc_rows(hd) + 4 * tc_keys(hd)) * (hd + TC_PAD) * 2
 
 
 def _choose_block(S: int, requested: int) -> int:
@@ -73,19 +116,31 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    block_q: int = 512, block_kv: int = 512) -> torch.Tensor:
     """Attention of pre-scaled ``q`` over ``k``, ``v``: ``(B, S, H, hd)``
-    in q's dtype.  The kernel on a CUDA tensor, the twin on a CPU one."""
+    in q's dtype.  The kernel on a CUDA tensor, the twin on a CPU one.
+    ``block_q`` / ``block_kv`` are the reference's requested blocks: the
+    twin follows them, the kernels have tiles of their own."""
     _check(q, k, v)
+    if block_q < 1 or block_kv < 1:
+        raise ValueError(f"block_q={block_q} and block_kv={block_kv} must "
+                         "be positive")
     dev = q.device
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     block_q=block_q, block_kv=block_kv)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
     B, S, H, hd = q.shape
     KV = k.shape[2]
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q, k and v must be contiguous")
+    route = flash_route(q.dtype)
+    if route == "tensor_core":
+        # cp.async copies 16-byte chunks: rows must start on 16 bytes
+        q, k, v = (t if _rows_aligned(t) else t.contiguous()
+                   for t in (q, k, v))
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if q.numel() == 0:
         return out
@@ -101,7 +156,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"flash_attention.{route}"] += 1
     return out
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every (batch, position, head) row of ``t`` starts on 16 bytes."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        s % step == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -175,4 +238,6 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.restype = _I
         fn.argtypes = _ARGTYPES
+        lib.repro_flash_tc_smem_bytes.restype = _I
+        lib.repro_flash_tc_smem_bytes.argtypes = [_I]
     return lib

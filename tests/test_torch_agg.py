@@ -13,11 +13,13 @@ import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src_torch"))
 import numpy as np
 import pytest
+import torch
 
 import repro.fl.agg_kernels as RK
 import repro.fl.flat as RF
 import repro_torch.fl.agg_kernels as TK
 import repro_torch.fl.flat as TF
+from repro_torch.kernels import agg_reduce as A
 
 LAYOUTS = {
     "odd_f32": [("float32", (17,)), ("float32", (3, 5)), ("float32", (1,)),
@@ -335,15 +337,72 @@ def test_sparse_arrival_folds_on_torch_backend():
     assert_bitwise(got.finalize(), want.finalize())
 
 
-@pytest.mark.parametrize("what", ["median", "trimmed_mean", "krum"])
-def test_robust_reductions_raise_on_a_mixed_run_stack(what):
-    """Median, trimmed mean and Krum need the round in one launch: a round
-    that mixes codecs or bases raises on the torch backend (ROADMAP item
-    17) and never reduces on the host; the numpy backend still runs it."""
+def _with_specials(rl, ref, tl, port, seed, nan=True):
+    """The round with signed zeros (and NaNs) in its raw fp32 clients (the
+    same values in the reference's and the port's payloads)."""
+    rng = np.random.default_rng(seed)
+    ref, port = list(ref), list(port)
+    for i, fp in enumerate(ref):
+        if type(fp).__name__ != "FlatParams":
+            continue
+        vec = fp.math_view().copy()
+        n = vec.size
+        vec[:16] = rng.choice([-0.0, 0.0], 16)
+        vec[16:32] = rng.choice([-0.0, 0.0, 1.0, -1.0], 16)
+        if nan:
+            vec[rng.integers(32, n, 3)] = np.nan
+        ref[i] = RF.FlatParams.from_arrays(RF.unflatten_vector(vec, rl), rl)
+        port[i] = TF.FlatParams.from_arrays(TF.unflatten_vector(vec, tl), tl)
+    return ref, port
+
+
+@pytest.mark.parametrize("specials", [False, True])
+@pytest.mark.parametrize("what", ["median", "trimmed_mean"])
+def test_robust_reductions_fold_a_mixed_run_stack_bitwise(what, specials):
+    """A round that mixes codecs, dtypes and bases reaches sort_reduce as
+    one fp64 stack decoded run by run (decode_rows): bitwise the numpy
+    engine, signed zeros and NaNs included, with no host reduction."""
     rl, ref, tl, port = _mixed_round()
-    fn, args = {"median": (TK.median, ()),
-                "trimmed_mean": (TK.trimmed_mean, (1,)),
-                "krum": (TK.krum_distances, ())}[what]
-    with pytest.raises(NotImplementedError, match="item 17"):
-        fn(port, tl, *args, backend="torch", device="cpu")
-    fn(port, tl, *args, backend="numpy")
+    if specials:
+        ref, port = _with_specials(rl, ref, tl, port, 5)
+    fn, rfn, args = {"median": (TK.median, RK.median, ()),
+                     "trimmed_mean": (TK.trimmed_mean, RK.trimmed_mean,
+                                      (2,))}[what]
+    before = dict(A.LAUNCHES)
+    got = fn(port, tl, *args, backend="torch", device="cpu")
+    assert A.LAUNCHES == before             # the twins ran: no kernel
+    want = rfn(ref, rl, *args, backend="numpy")
+    assert got.buf.tobytes() == want.buf.tobytes()
+
+
+@pytest.mark.parametrize("specials", [False, True])
+def test_krum_folds_a_mixed_run_stack(specials):
+    """Krum over the mixed round: distances within 1e-9 of the numpy
+    engine, the same selection and the same bitwise mean of the chosen."""
+    rl, ref, tl, port = _mixed_round()
+    if specials:   # signed zeros only: a NaN makes its distances NaN
+        ref, port = _with_specials(rl, ref, tl, port, 6, nan=False)
+    d_port = TK.krum_distances(port, tl, backend="torch", device="cpu")
+    d_ref = RK.krum_distances(ref, rl, backend="numpy")
+    np.testing.assert_allclose(d_port, d_ref, rtol=1e-9, atol=1e-9)
+    chosen = np.argsort(TK.krum_scores(d_port, 1))[:2]
+    assert chosen.tolist() == np.argsort(RK.krum_scores(d_ref, 1))[:2].tolist()
+    sel = [(port[i], 4.0 + i) for i in chosen]
+    assert_bitwise(TK.weighted_mean(sel, tl, backend="torch", device="cpu"),
+                   RK.weighted_mean([(ref[i], 4.0 + i) for i in chosen], rl,
+                                    backend="numpy"))
+
+
+def test_mixed_round_stack_is_decoded_run_by_run():
+    """The robust stack of a mixed round is one fp64 (C, N) tensor whose
+    rows are each client's decode; a uniform round keeps its payloads."""
+    rl, ref, tl, port = _mixed_round()
+    s = TK._robust_stack(port, "cpu")
+    assert s["data"].dtype == torch.float64 and s["scales"] is None \
+        and s["base"] is None
+    n = tl.total_size
+    for i, fp in enumerate(port):
+        want = fp.f64_chunk(0, n, np.empty(n, np.float64))
+        assert s["data"][i].numpy().tobytes() == want.tobytes()
+    flat = make_payloads("odd_f32", "flat", 3, seed=33)[3]
+    assert TK._robust_stack(flat, "cpu")["data"].dtype == torch.float32

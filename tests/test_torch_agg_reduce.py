@@ -154,7 +154,7 @@ def test_robust_wrappers_on_cpu_run_the_twins_and_count_no_launch():
 
 
 _SHARED_BAD = ["dtype", "shape", "scales", "noscales", "noncontig",
-               "no_clients", "over_cap", "base"]
+               "no_clients", "base"]
 
 
 @pytest.mark.parametrize(
@@ -176,21 +176,65 @@ def test_robust_wrappers_reject_what_the_kernels_do_not_take(wrapper, bad):
         data = torch.zeros((8, 4), dtype=torch.float32).t()
     elif bad == "no_clients":
         data = data[:0]
-    elif bad == "over_cap":
-        data = torch.zeros((agg_reduce.MAX_CLIENTS + 1, 8))
     elif bad == "base":
         kw["base"] = torch.zeros(7, dtype=torch.float64)
     elif bad == "kind":
         kw["kind"] = "mean"
     else:
         kw.update(kind="trim_sum", trim_k=2)
-    with pytest.raises((TypeError, ValueError),
-                       match="MAX_CLIENTS" if bad == "over_cap" else None):
+    with pytest.raises((TypeError, ValueError)):
         getattr(agg_reduce, wrapper)(data, **kw)
 
 
+@pytest.mark.parametrize("clients", [65, 200])
+@pytest.mark.parametrize("wrapper", ["sort_reduce", "gram"])
+def test_robust_wrappers_take_more_than_64_clients(wrapper, clients):
+    """No client cap: past 64 clients the twins run (the kernels sort in
+    shared memory or scratch and tile the Gram by client blocks), and agree
+    with numpy's sort and product on the decoded stack."""
+    rng = np.random.default_rng(clients)
+    data, kw = _stack("float32", clients, 200, rng, specials=False)
+    x = data.to(torch.float64).numpy()
+    if wrapper == "gram":
+        got = agg_reduce.gram(data, **kw).numpy()
+        t = x - x[0]
+        np.testing.assert_allclose(got, t @ t.T, rtol=1e-12, atol=1e-12)
+        return
+    k = clients // 5
+    got = agg_reduce.sort_reduce(data, kind="trim_sum", trim_k=k, **kw)
+    acc = np.zeros(x.shape[1])              # numpy's sum: +0.0, rows in order
+    for row in np.sort(x, axis=0)[k:clients - k]:
+        acc = acc + row
+    assert np.array_equal(got.numpy().view(np.int64), acc.view(np.int64))
+    med = agg_reduce.sort_reduce(data, kind="median", **kw).numpy()
+    assert np.array_equal(med, np.median(x, axis=0))
+
+
 SORT_CLIENTS = [1, 2, 3, 7, 16, 33, 64]
+#: past the register path: shared-memory sorts and Gram client blocks
+BIG_CLIENTS = [65, 200, 1000]
 KINDS = ["int8", "int8_base", "float16", "bfloat16", "float32", "float64"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_decode_rows_on_cpu_runs_the_twin_and_counts_no_launch(kind):
+    """The decoded rows land in ``out[row0:row0 + C]``, bitwise the
+    per-row decode, and nothing else is written; rows outside ``out``
+    raise."""
+    rng = np.random.default_rng(9)
+    data, kw = _stack(kind, 3, 2100, rng)
+    before = dict(agg_reduce.LAUNCHES)
+    out = torch.full((6, 2100), 7.0, dtype=torch.float64)
+    agg_reduce.decode_rows(data, out=out, row0=2, **kw)
+    assert agg_reduce.LAUNCHES == before
+    want = agg_reduce._decoded_plain(data, kw["scales"], kw["qchunk"],
+                                     kw["base"])
+    assert torch.equal(_bits(out[2:5]), _bits(want))
+    assert bool((out[:2] == 7.0).all()) and bool((out[5:] == 7.0).all())
+    assert torch.equal(_bits(agg_reduce.decode_rows(data, **kw)),
+                       _bits(want))
+    with pytest.raises(ValueError, match="outside"):
+        agg_reduce.decode_rows(data, out=out, row0=4, **kw)
 
 
 @pytest.mark.cuda
@@ -226,6 +270,67 @@ def test_gram_kernel_matches_plain_twin_on_card(cuda_device, kind, clients):
     torch.cuda.synchronize()
     assert torch.equal(_bits(got), _bits(again))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clients", BIG_CLIENTS + [20000])
+@pytest.mark.parametrize("kind", ["int8_base", "bfloat16", "float32"])
+def test_sort_reduce_kernel_over_64_clients_matches_twin_on_card(
+        cuda_device, kind, clients):
+    """C > 64: the shared-memory sort (65 to 1000) and, at 20000 clients,
+    the sort in global scratch; bitwise the twin."""
+    rng = np.random.default_rng(clients)
+    data, kw = _stack(kind, clients, 300 if clients > 1000 else 2100, rng)
+    dev = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v
+           for k, v in kw.items()}
+    for op, k in (("median", 0), ("trim_sum", 0), ("trim_sum", clients // 5)):
+        want = agg_reduce.sort_reduce_plain(data, kind=op, trim_k=k, **kw)
+        got = agg_reduce.sort_reduce(data.to(cuda_device), kind=op,
+                                     trim_k=k, **dev)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got.cpu()), _bits(want)), (op, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clients", BIG_CLIENTS)
+@pytest.mark.parametrize("kind", ["int8_base", "float32"])
+def test_gram_kernel_over_64_clients_matches_twin_on_card(cuda_device, kind,
+                                                          clients):
+    rng = np.random.default_rng(clients)
+    data, kw = _stack(kind, clients, 2100, rng, specials=False)
+    dev = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v
+           for k, v in kw.items()}
+    want = agg_reduce.gram_plain(data, **kw)
+    got = agg_reduce.gram(data.to(cuda_device), **dev)
+    again = agg_reduce.gram(data.to(cuda_device), **dev)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(again))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_decode_rows_kernel_matches_plain_twin_on_card(cuda_device, kind):
+    """The decode-only kernel writes its rows of a larger fp64 stack,
+    bitwise the twin (signed zeros kept; NaNs stay NaNs), and nothing
+    else."""
+    rng = np.random.default_rng(7)
+    data, kw = _stack(kind, 5, 3 * 1024 + 77, rng)
+    dev = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v
+           for k, v in kw.items()}
+    want = agg_reduce.decode_rows_plain(data, **kw)
+    out = torch.full((8, data.shape[1]), 3.0, dtype=torch.float64,
+                     device=cuda_device)
+    before = agg_reduce.LAUNCHES["decode_rows"]
+    agg_reduce.decode_rows(data.to(cuda_device), out=out, row0=2, **dev)
+    torch.cuda.synchronize()
+    assert agg_reduce.LAUNCHES["decode_rows"] == before + 1
+    got = out[2:7].cpu()
+    # NaN payload bits are the device's (a NaN scale or input stays NaN)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(_bits(got[~nan]), _bits(want[~nan]))
+    assert bool((out[:2] == 3.0).all()) and bool((out[7:] == 3.0).all())
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,11 @@ fp32 and 2e-2 for bf16 inputs (``assert_allclose`` with rtol = atol).
 Inputs come from a numpy seed; bf16 inputs are rounded from the same fp32
 values on both sides.
 
-The ``cuda`` tests hold the CUDA kernel against the twin on the card and
-skip here.  This file imports JAX only inside the tests that need it, so
+The route a CUDA tensor takes is chosen by dtype alone (bf16 on the tensor
+cores, fp32 on the CUDA cores); the choice and the tensor-core kernel's
+shared memory per head dim are pure Python and tested here.  The ``cuda``
+tests hold both CUDA kernels against the twin on the card and skip here.
+This file imports JAX only inside the tests that need it, so
 ``python -m pytest -q -m cuda tests/test_torch_flash.py`` runs on the card,
 which has no JAX.
 """
@@ -176,6 +179,51 @@ def test_wrapper_takes_head_dim_256_and_runs_the_twin_on_cpu():
     assert FA.LAUNCHES["flash_attention"] == before
 
 
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
+                                         (torch.float32, "cuda_core")])
+def test_route_is_chosen_by_dtype_alone(dtype, route):
+    assert FA.flash_route(dtype) == route
+    assert FA.LAUNCHES.keys() >= {"flash_attention",
+                                  f"flash_attention.{route}"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_no_route_for_other_dtypes(dtype):
+    with pytest.raises(TypeError):
+        FA.flash_route(dtype)
+
+
+#: the tensor-core kernel's dynamic shared memory: a Q block of 128 rows (64
+#: above hd 80) and two stages of K and V tiles (64 keys; 32 at hd 256),
+#: rows of hd + 8 bf16
+TC_SMEM = {32: 30_720, 64: 55_296, 80: 67_584, 128: 87_040, 256: 101_376}
+
+
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+def test_tensor_core_shared_memory_fits_a_block(hd):
+    """Every instantiated head dim fits the 227 KB a block may use (above
+    48 KB the launch raises the limit first), and leaves room for two CTAs
+    per SM at the serving head dims."""
+    got = FA.tc_smem_bytes(hd)
+    assert got == TC_SMEM[hd]
+    assert got < FA.SMEM_LIMIT and 2 * got <= FA.SMEM_LIMIT
+    # padded rows: the 8 rows an ldmatrix phase reads fall in 8 distinct
+    # 16-byte bank groups of the 128-byte row of banks
+    stride = (hd + FA.TC_PAD) * 2
+    assert len({(r * stride) % 128 // 16 for r in range(8)}) == 8
+
+
+def test_tensor_core_rows_must_start_on_16_bytes():
+    """cp.async moves 16-byte chunks: a view whose rows do not start on 16
+    bytes is copied to a contiguous tensor before the launch."""
+    x = torch.zeros((2, 8, 2, 88), dtype=torch.bfloat16)
+    assert FA._rows_aligned(x[..., :80])
+    assert not FA._rows_aligned(x[..., 4:84])
+    assert FA._rows_aligned(torch.zeros((1, 5, 3, 80), dtype=torch.bfloat16))
+    y = torch.zeros((1, 8, 2, 81), dtype=torch.bfloat16)[..., :80]
+    assert not FA._rows_aligned(y)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     q, k, v = _torch(_inputs(4, 1, 8, 4, 2, 16), "float32")
     with pytest.raises(ValueError, match="head dim 16"):
@@ -264,6 +312,50 @@ def test_kernel_matches_twin_on_card(cuda_device, case, dtype):
     assert FA.LAUNCHES["flash_attention"] == before + 1
     want = FA.flash_attention_plain(*xs, causal=causal, window=window)
     _close(got.float().cpu().numpy(), want.float().cpu().numpy(), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in ALL_CASES
+                                  if c[4] in FA.HEAD_DIMS] + [
+    c + ("bfloat16", 0) for c in CARD_CASES], ids=_ids)
+def test_tensor_core_route_matches_twin_on_card(cuda_device, case):
+    """The case grid in bf16 on the tensor-core kernel: within 2e-2 of the
+    twin, one launch counted on its route and none on the other."""
+    B, S, H, KV, hd, window, causal = case[:7]
+    xs = [x.to(cuda_device) for x in
+          _torch(_inputs(S + hd, B, S, H, KV, hd), "bfloat16")]
+    before = dict(FA.LAUNCHES)
+    got = FA.flash_attention(*xs, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention.tensor_core"] \
+        == before["flash_attention.tensor_core"] + 1
+    assert FA.LAUNCHES["flash_attention.cuda_core"] \
+        == before["flash_attention.cuda_core"]
+    want = FA.flash_attention_plain(*xs, causal=causal, window=window)
+    _close(got.float().cpu().numpy(), want.float().cpu().numpy(), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+def test_tensor_core_shared_memory_matches_the_kernel(cuda_device, hd):
+    assert FA._kernel_lib().repro_flash_tc_smem_bytes(hd) \
+        == FA.tc_smem_bytes(hd)
+
+
+@pytest.mark.cuda
+def test_tensor_core_route_takes_misaligned_views_on_card(cuda_device):
+    """A view whose rows are not 16-byte aligned is copied first: the
+    same result as the contiguous tensors."""
+    q, k, v = (torch.zeros((1, 300, h, 88), dtype=torch.bfloat16,
+                           device=cuda_device) for h in (8, 2, 2))
+    for t in (q, k, v):
+        t[..., 4:84] = torch.randn(t[..., 4:84].shape, device=cuda_device)
+    views = [t[..., 4:84] for t in (q, k, v)]
+    got = FA.flash_attention(*views, causal=True, window=64)
+    want = FA.flash_attention(*(t.contiguous() for t in views), causal=True,
+                              window=64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

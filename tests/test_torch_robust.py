@@ -178,6 +178,33 @@ def test_krum_large_common_offset():
 # ---------------------------------------------------------------------------
 # against the reference Pallas kernels in interpret mode
 # ---------------------------------------------------------------------------
+#: past the kernels' register path (C <= 64): shared-memory sorts and the
+#: Gram matrix tiled by 64-client blocks (at 1000: 136 block pairs)
+MANY_CLIENTS = [65, 200, 1000]
+
+
+@pytest.mark.parametrize("n_clients", MANY_CLIENTS)
+@pytest.mark.parametrize("codec", ["flat", "q8_delta_quant"])
+def test_robust_folds_take_any_client_count(codec, n_clients):
+    """No client cap: FedMedian's, FedTrimmedMean's and Krum's reductions
+    over 65, 200 and 1000 clients on the torch backend -- median and
+    trimmed mean bitwise the numpy engine, Krum's distances within 1e-9 and
+    its order of scores (hence its selection) exact."""
+    rl, ref, tl, port = make_payloads("odd_f32" if codec == "flat"
+                                      else "big_unaligned", codec,
+                                      n_clients, seed=n_clients)
+    assert_bitwise(TK.median(port, tl, **TORCH),
+                   RK.median(ref, rl, backend="numpy"))
+    k = int(0.1 * n_clients)
+    assert_bitwise(TK.trimmed_mean(port, tl, k, **TORCH),
+                   RK.trimmed_mean(ref, rl, k, backend="numpy"))
+    d_port = TK.krum_distances(port, tl, **TORCH)
+    d_ref = RK.krum_distances(ref, rl, backend="numpy")
+    np.testing.assert_allclose(d_port, d_ref, rtol=1e-9, atol=1e-9)
+    assert np.argsort(TK.krum_scores(d_port, 2)).tolist() \
+        == np.argsort(RK.krum_scores(d_ref, 2)).tolist()
+
+
 @pytest.fixture
 def pallas_x64(monkeypatch):
     """Give the reference kernels back the ``enable_x64`` context manager
