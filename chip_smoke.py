@@ -11,7 +11,10 @@ It builds every CUDA kernel of the port from the sources in the checkout
 PyTorch twin on the card (``rglru_scan``, ``scatter_wsum``,
 ``decode_rows`` and ``weighted_sum``'s fp32 tiles bitwise, ``secagg_mask``
 exactly; ``sort_reduce`` bitwise and ``gram`` to 1e-9 up to 1000 clients,
-``sort_reduce`` also at 20000, in global scratch; flash attention on both
+``sort_reduce`` also at 20000, in global scratch, and both at the edges of
+their register paths -- every client-count bucket boundary, N at every
+stage width +-1, ragged row starts, qchunk not dividing a stage, every
+payload kind with and without a base; flash attention on both
 of its routes, the bf16 tensor-core kernel and the fp32 CUDA-core one),
 folds a round that mixes codecs and bases against the numpy engine (the
 weighted folds, and the robust reductions through ``decode_rows``), and
@@ -139,25 +142,37 @@ def wsum_bound(c: int, n: int, itemsize: int, *, acc: bool, base: bool,
     return _bound(nbytes, c * n * (2 + (1 if base else 0)))
 
 
+def sort_bytes(c: int, n: int, itemsize: int, *, base: bool,
+               nscales: int = 0) -> int:
+    """Bytes ``sort_reduce`` must move: the stack (+ scales, base) read
+    once, the fp64 result written once."""
+    return c * n * itemsize + c * nscales * 4 + n * 8 + (n * 8 if base else 0)
+
+
 def sort_bound(c: int, n: int, itemsize: int, *, base: bool,
                nscales: int = 0):
-    """(ms, bound_by) for ``sort_reduce``: the stack (+ scales, base) read
-    once and the fp64 result written once, against HBM; its adds are too
-    few to bind (the sort is integer compare-exchanges, not counted)."""
-    nbytes = c * n * itemsize + c * nscales * 4 + n * 8 \
+    """(ms, bound_by) for ``sort_reduce``: :func:`sort_bytes` against HBM;
+    its adds are too few to bind (the sort is integer compare-exchanges,
+    not counted)."""
+    return _bound(sort_bytes(c, n, itemsize, base=base, nscales=nscales),
+                  2 * n)
+
+
+def gram_bytes(c: int, n: int, itemsize: int, *, base: bool,
+               nscales: int = 0) -> int:
+    """Bytes ``gram`` must move: the stack (+ scales, base) read once, the
+    (C, C) fp64 result written once."""
+    return c * n * itemsize + c * nscales * 4 + c * c * 8 \
         + (n * 8 if base else 0)
-    return _bound(nbytes, 2 * n)
 
 
 def gram_bound(c: int, n: int, itemsize: int, *, base: bool,
                nscales: int = 0):
-    """(ms, bound_by) for ``gram``: the stack (+ scales, base) read once and
-    the (C, C) fp64 result written once, against HBM, or its C(C+1)/2
-    products per column (2 flops each) against the card's fp64 tensor-core
-    peak (67 TFLOP/s; the kernel itself uses CUDA-core FMAs, 34)."""
-    nbytes = c * n * itemsize + c * nscales * 4 + c * c * 8 \
-        + (n * 8 if base else 0)
-    return _bound(nbytes, c * (c + 1) // 2 * n * 2, FP64_TENSOR_FLOPS)
+    """(ms, bound_by) for ``gram``: :func:`gram_bytes` against HBM, or its
+    C(C+1)/2 products per column (2 flops each) against the card's fp64
+    tensor-core peak (67 TFLOP/s), where the kernel's products run."""
+    return _bound(gram_bytes(c, n, itemsize, base=base, nscales=nscales),
+                  c * (c + 1) // 2 * n * 2, FP64_TENSOR_FLOPS)
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +192,21 @@ def _ptxas(log: str):
                          spill])
             fn = None
     return rows
+
+
+def _ptxas_summary(name: str, main: tuple) -> dict:
+    """Registers and spills of a source's kernel instances from its build
+    log: the most registers of any instance, the instances that spill, and
+    the rows of the instances whose mangled names hold one of ``main``."""
+    from repro_torch.kernels import _build
+
+    rows = _ptxas(_build.BUILD_LOG.get(name, ""))
+    spills = [r for r in rows if r[2] and
+              "0 bytes spill stores, 0 bytes spill loads" not in r[2]]
+    regs = [int(r[1].split()[0]) for r in rows if r[1].split()[0].isdigit()]
+    return {"instances": len(rows), "max_registers": max(regs, default=None),
+            "spilling": spills,
+            "main_path": [r for r in rows if any(m in r[0] for m in main)]}
 
 
 def phase_env():
@@ -248,11 +278,14 @@ def phase_kernel_vs_twin(dev):
 
 def _robust_inputs(gen, kind: str, c: int, n: int, dev, specials: bool,
                    qchunk: int = 1024):
-    """A (C, N) payload stack made on the card from ``gen``.  With
-    ``specials``, columns that hold only signed zeros, zeros and +-1, and
-    NaNs (for int8: one NaN and one -0.0 scale window)."""
+    """A (C, N) payload stack made on the card from ``gen``; a kind ending
+    in ``_base`` adds an fp64 delta base.  With ``specials``, columns that
+    hold only signed zeros, zeros and +-1, and NaNs, as far as N has room
+    (for int8: one NaN and one -0.0 scale window), and base entries +-inf
+    and NaN."""
     scales = base = None
-    if kind.startswith("int8"):
+    dt = kind[:-5] if kind.endswith("_base") else kind
+    if dt == "int8":
         data = torch.randint(-127, 128, (c, n), dtype=torch.int8,
                              device=dev, generator=gen)
         lo, hi = (-40.0, -1.0) if specials else (-3.0, -1.0)
@@ -262,9 +295,6 @@ def _robust_inputs(gen, kind: str, c: int, n: int, dev, specials: bool,
         if specials:
             scales[-1, 0] = float("nan")
             scales[0, -1] = -0.0
-        if kind == "int8_base":
-            base = torch.randn(n, dtype=torch.float64, device=dev,
-                               generator=gen)
     else:
         x = 2.0 * torch.randn((c, n), dtype=torch.float64, device=dev,
                               generator=gen)
@@ -272,13 +302,33 @@ def _robust_inputs(gen, kind: str, c: int, n: int, dev, specials: bool,
             pick = lambda vals, cols: torch.tensor(  # noqa: E731
                 vals, dtype=torch.float64, device=dev)[torch.randint(
                     len(vals), (c, cols), device=dev, generator=gen)]
-            x[:, 0:64] = pick([-0.0, 0.0], 64)
-            x[:, 64:128] = pick([-0.0, 0.0, 1.0, -1.0], 64)
-            rows = torch.randint(c, (96,), device=dev, generator=gen)
-            x[rows, torch.arange(128, 224, device=dev)] = float("nan")
+            w0, w1 = min(64, n), min(128, n)
+            x[:, 0:w0] = pick([-0.0, 0.0], w0)
+            x[:, w0:w1] = pick([-0.0, 0.0, 1.0, -1.0], w1 - w0)
+            cols = torch.arange(min(128, n - 1), min(224, n - 1), device=dev)
+            rows = torch.randint(c, (cols.numel(),), device=dev,
+                                 generator=gen)
+            x[rows, cols] = float("nan")
             x[:, n - 1] = float("nan")
-        data = x.to(getattr(torch, kind))
+        data = x.to(getattr(torch, dt))
+    if kind.endswith("_base"):
+        base = torch.randn(n, dtype=torch.float64, device=dev, generator=gen)
+        if specials:  # columns whose base is not finite
+            base[0], base[n // 2] = float("inf"), float("-inf")
+            base[n - 1 - n // 3] = float("nan")
     return data, dict(scales=scales, qchunk=qchunk, base=base)
+
+
+def _at_offset(data, offset: int):
+    """The same stack at a storage offset of ``offset`` elements: still
+    contiguous, but row 0 starts ``offset`` elements past a 16-byte
+    boundary (and the other rows wherever that puts them)."""
+    if offset == 0:
+        return data
+    flat = torch.empty(offset + data.numel(), dtype=data.dtype,
+                       device=data.device)
+    flat[offset:] = data.reshape(-1)
+    return flat[offset:].view(data.shape)
 
 
 ROBUST_KINDS = ("int8", "int8_base", "float16", "bfloat16", "float32",
@@ -291,13 +341,28 @@ MANY_CLIENTS = (65, 200, 1000)
 #: a client count whose padded keys (32768 x 8 bytes) do not fit a block's
 #: shared memory: sort_reduce sorts in global scratch; at a small N
 SCRATCH_CASE = (20000, 1000)
+#: the register paths' edges: C at every CMAX bucket boundary; N tiny, one
+#: less and one more than the smallest stage widths (64 for ``gram``, 128
+#: for ``sort_reduce``) and the largest (1024; the ``cuda`` tests of
+#: ``tests/test_torch_agg_reduce.py`` take every width), and odd (no row
+#: start 16-byte aligned); every payload kind with and without a base;
+#: qchunk 1024, 1000 and 3 in turn (1000 and 3 divide no stage width)
+EDGE_CLIENTS = (1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64)
+EDGE_N = (1, 3, 63, 65, 127, 129, 1023, 1025, 6923)
+EDGE_KINDS = tuple(k + b for k in ("int8", "float16", "bfloat16", "float32",
+                                   "float64") for b in ("", "_base"))
 
 
 def _robust_grid():
-    """(kind, C, N) of the robust kernels' checks."""
-    return [(kind, c, n) for kind in ROBUST_KINDS
+    """(kind, C, N, qchunk, storage offset) of the robust kernels' checks:
+    the main grid, then the edge grid."""
+    main = [(kind, c, n, 1024, 0) for kind in ROBUST_KINDS
             for c in ROBUST_CLIENTS + MANY_CLIENTS
             for n in (ROBUST_N if c <= 64 else ROBUST_N[:1])]
+    edge = [(kind, c, n, (1024, 1000, 3)[i % 3], (i + c) % 2)
+            for kind in EDGE_KINDS for c in EDGE_CLIENTS
+            for i, n in enumerate(EDGE_N)]
+    return main + edge
 
 
 def phase_sort_vs_twin(dev):
@@ -307,26 +372,33 @@ def phase_sort_vs_twin(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
     cases, many_ms = 0, {}
-    grid = _robust_grid() + [(kind, *SCRATCH_CASE)
+    grid = _robust_grid() + [(kind, *SCRATCH_CASE, 1024, 0)
                              for kind in ("int8_base", "float32")]
-    for kind, c, n in grid:
-        data, kw = _robust_inputs(gen, kind, c, n, dev, True)
+    for kind, c, n, qchunk, off in grid:
+        data, kw = _robust_inputs(gen, kind, c, n, dev, True, qchunk)
+        data = _at_offset(data, off)
+        # an edge-grid case takes the median and one trim; the main grid
+        # trims 0, 1 and C / 3
+        edge = n in EDGE_N and c <= 64
         ops = [("median", 0)] + [("trim_sum", k) for k in
-                                 sorted({0, 1, c // 3}) if c - 2 * k >= 1]
+                                 ([max(1, c // 3)] if edge else
+                                  sorted({0, 1, c // 3})) if c - 2 * k >= 1]
         for op, k in ops:
             got = agg_reduce.sort_reduce(data, kind=op, trim_k=k, **kw)
             want = agg_reduce.sort_reduce_plain(data, kind=op, trim_k=k,
                                                 **kw)
             torch.cuda.synchronize()
             check(torch.equal(got.view(torch.int64), want.view(torch.int64)),
-                  f"sort_reduce != twin: {kind} C={c} N={n} {op} k={k}")
+                  f"sort_reduce != twin: {kind} C={c} N={n} q={qchunk} "
+                  f"offset={off} {op} k={k}")
             cases += 1
         if c > 64 and kind == "float32":
             many_ms[f"{c}x{n}"] = event_ms(lambda: agg_reduce.sort_reduce(
                 data, kind="median", **kw))
         del data, kw
     emit("sort_reduce_vs_twin", cases=cases, max_abs_diff=0.0, bitwise=True,
-         clients=sorted({c for _, c, _ in grid}),
+         clients=sorted({c for _, c, *_ in grid}),
+         n_edges=list(EDGE_N), kinds=sorted({k for k, *_ in grid}),
          median_ms_over_64_clients_f32=many_ms)
     return 0.0, many_ms
 
@@ -339,8 +411,10 @@ def phase_gram_vs_twin(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     worst, worst_rel, cases, many_ms = 0.0, 0.0, 0, {}
-    for kind, c, n in _robust_grid():
-        data, kw = _robust_inputs(gen, kind, c, n, dev, False)
+    grid = _robust_grid()
+    for kind, c, n, qchunk, off in grid:
+        data, kw = _robust_inputs(gen, kind, c, n, dev, False, qchunk)
+        data = _at_offset(data, off)
         got = agg_reduce.gram(data, **kw)
         again = agg_reduce.gram(data, **kw)
         want = agg_reduce.gram_plain(data, **kw)
@@ -352,7 +426,8 @@ def phase_gram_vs_twin(dev):
         worst_rel = max(worst_rel, float(
             (diff / want.abs().clamp_min(1e-300)).max()))
         check(torch.allclose(got, want, rtol=1e-9, atol=1e-9),
-              f"gram != twin: {kind} C={c} N={n} max|d|={float(diff.max())}")
+              f"gram != twin: {kind} C={c} N={n} q={qchunk} offset={off} "
+              f"max|d|={float(diff.max())}")
         if c > 64 and kind == "float32":
             many_ms[f"{c}x{n}"] = event_ms(lambda: agg_reduce.gram(data, **kw))
         cases += 1
@@ -360,7 +435,7 @@ def phase_gram_vs_twin(dev):
     emit("gram_vs_twin", cases=cases, max_abs_diff=worst,
          max_rel_diff=worst_rel, rtol=1e-9, atol=1e-9,
          bitwise_across_launches=True,
-         clients=sorted(ROBUST_CLIENTS + MANY_CLIENTS),
+         clients=sorted({c for _, c, *_ in grid}), n_edges=list(EDGE_N),
          ms_over_64_clients_f32=many_ms)
     return worst, many_ms
 
@@ -824,6 +899,10 @@ def phase_robust_fold(dev):
                             nscales=nscales)
         gram_b = gram_bound(CLIENTS, n, itemsize, base=has_base,
                             nscales=nscales)
+        sort_nb = sort_bytes(CLIENTS, n, itemsize, base=has_base,
+                             nscales=nscales)
+        gram_nb = gram_bytes(CLIENTS, n, itemsize, base=has_base,
+                             nscales=nscales)
         for op, k in (("median", 0), ("trim_sum", TRIM_K)):
             got = A.sort_reduce(data, kind=op, trim_k=k, **args)
             want = A.sort_reduce_plain(data, kind=op, trim_k=k, **args)
@@ -836,6 +915,7 @@ def phase_robust_fold(dev):
                 "plain_ms": event_ms(lambda: A.sort_reduce_plain(
                     data, kind=op, trim_k=k, **args), reps=2),
                 "bound_ms": sort_b[0], "bound_by": sort_b[1]}
+            row[op].update(_rates(row[op], sort_nb))
         g1 = A.gram(data, **args)
         g2 = A.gram(data, **args)
         gt = A.gram_plain(data, **args)
@@ -852,6 +932,7 @@ def phase_robust_fold(dev):
             "plain_ms": event_ms(lambda: A.gram_plain(data, **args), reps=2),
             "max_abs_diff": float((g1 - gt).abs().max()),
             "bound_ms": gram_b[0], "bound_by": gram_b[1]}
+        row["gram"].update(_rates(row["gram"], gram_nb))
         del g1, g2, gt
         # yardsticks only (never called by the port): one torch.sort and one
         # torch.mm over the pre-widened fp64 stack
@@ -868,14 +949,31 @@ def phase_robust_fold(dev):
         row.update(h2d_ms=h2d_ms, numpy_check_1M_s=numpy_check_s)
         report[codec] = row
         del flats, pre, sources
+    # registers and spills of the register paths' kernels; main_path: the
+    # instances this phase runs (C = 16: fp32 and int8 + base, both on
+    # 32-bit keys; gram's two 8-row blocks)
+    ptxas = {"sort_reduce": _ptxas_summary(
+        "sort_reduce", ("sort_reduce_kernelILi3ELi16ELi0E",
+                        "sort_reduce_kernelILi0ELi16ELi1E")),
+             "gram": _ptxas_summary(
+        "gram", ("gram_dmma_kernelILi3ELi2E", "gram_dmma_kernelILi0ELi2E"))}
     emit("robust_fold_50Mx16", params=LEAF * NLEAVES, clients=CLIENTS,
          trim_k=TRIM_K, numpy_check_params=PREFIX_LEAVES * LEAF,
-         codecs=report)
-    flat = report["flat"]
+         codecs=report, ptxas=ptxas)
+    flat, q8 = report["flat"], report["q8_delta"]
     shape = f"{CLIENTS}x{LEAF * NLEAVES} float32, distinct clients"
     return {
-        "sort_reduce": dict(flat["median"], shape=shape + ", median"),
-        "gram": dict(flat["gram"], shape=shape)}
+        "sort_reduce": dict(flat["median"], shape=shape + ", median",
+                            trim_sum=flat["trim_sum"],
+                            q8_delta={"median": q8["median"],
+                                      "trim_sum": q8["trim_sum"]}),
+        "gram": dict(flat["gram"], shape=shape, q8_delta=q8["gram"])}
+
+
+def _rates(row: dict, nbytes: int) -> dict:
+    """The kernel's share of its bound and its rate in GB/s."""
+    return {"share_of_bound": row["bound_ms"] / row["kernel_ms"],
+            "gb_per_s": nbytes / (row["kernel_ms"] * 1e-3) / 1e9}
 
 
 def decode_bound(c: int, n: int, itemsize: int, *, base: bool,
@@ -2153,7 +2251,8 @@ def main() -> int:
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "max_abs_diff", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape", "launches_by_path", "launches_by_route",
+            "library_ms", "share_of_bound", "gb_per_s", "trim_sum", "shape",
+            "launches_by_path", "launches_by_route",
             "routes", "max_abs_diff_by_route", "hd256", "over_64_clients",
             "q8_delta", "eager_scan_ms", "f32_tile", "wrapper_ms",
             "at_50M_P15")

@@ -14,8 +14,12 @@ accurate ones).  The aggregation kernels (``weighted_sum``,
 ``secagg_mask`` and
 ``rglru_scan`` also take ``-fmad=false``: they must round every product and
 sum on its own, because they are held bitwise against the numpy engine or
-their twin.  ``flash_attention`` is held to a tolerance, so it lets
-``nvcc`` contract a multiply and an add into one FMA.
+their twin (the flag leaves ``gram``'s ``mma.sync`` on the fp64 tensor
+cores alone).  ``flash_attention`` is held to a tolerance, so it lets
+``nvcc`` contract a multiply and an add into one FMA.  ``sort_reduce``,
+whose 68 template instances make the longest build (26 s, against 10 s
+or less for every other source, on the H100 machine), is optimized in 4
+parallel parts (``--split-compile=4``: 16 s).
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: flags each source adds to :data:`NVCC_FLAGS`; every source is listed
 SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
     "weighted_sum": ("-fmad=false",),
-    "sort_reduce": ("-fmad=false",),
+    "sort_reduce": ("-fmad=false", "--split-compile=4"),
     "gram": ("-fmad=false",),
     "flash_attention": (),
     "rglru_scan": ("-fmad=false",),

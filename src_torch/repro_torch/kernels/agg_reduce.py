@@ -41,8 +41,9 @@ For each:
   written as separate ops: a fused ``acc.add_(t, alpha=w)`` or
   ``torch.addcmul`` runs ``a + w*b`` inside one CUDA kernel compiled with
   FMA contraction, and would no longer round like numpy.  ``gram`` is held
-  to a tolerance (its products are FMAs, summed in another order than
-  numpy's dgemm), and is bitwise equal to itself from run to run.
+  to a tolerance (its products run on the fp64 tensor cores, summed in
+  another order than numpy's dgemm), and is bitwise equal to itself from
+  run to run.
 - Outputs that are NaN are the canonical quiet NaN (``float("nan")``), in
   the kernels and the twins alike.
 

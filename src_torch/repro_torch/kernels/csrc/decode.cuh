@@ -11,6 +11,10 @@
 // decode32 is the same element as fp32, for weighted_sum's fp32 tiles (the
 // reference's tile_dtype="float32"): int8 is fp32(q * scale) as above, fp16,
 // bf16 and fp32 widen or stay exactly, fp64 narrows (round to nearest even).
+//
+// decode_at and decode32_at read one element at an address (a payload
+// element already staged in shared memory, stage.cuh) with its int8 scale,
+// and give the same values as decode and decode32.
 #pragma once
 
 #include <cstdint>
@@ -20,6 +24,13 @@
 namespace repro {
 
 enum Kind { kInt8 = 0, kF16 = 1, kBF16 = 2, kF32 = 3, kF64 = 4 };
+
+// bytes of one payload element of a kind
+template <int KIND>
+constexpr int kItemSize = KIND == kInt8 ? 1
+                          : KIND == kF16 || KIND == kBF16 ? 2
+                          : KIND == kF32                  ? 4
+                                                          : 8;
 
 template <int KIND>
 __device__ __forceinline__ double decode(const void* __restrict__ data,
@@ -59,6 +70,32 @@ __device__ __forceinline__ float decode32(const void* __restrict__ data,
     return static_cast<const float*>(data)[idx];
   } else {
     return __double2float_rn(static_cast<const double*>(data)[idx]);
+  }
+}
+
+template <int KIND>
+__device__ __forceinline__ float decode32_at(const void* p, float scale) {
+  if constexpr (KIND == kInt8) {
+    return __fmul_rn(static_cast<float>(*static_cast<const int8_t*>(p)),
+                     scale);
+  } else if constexpr (KIND == kF16) {
+    return __half2float(*static_cast<const __half*>(p));
+  } else if constexpr (KIND == kBF16) {
+    const unsigned int u = *static_cast<const unsigned short*>(p);
+    return __uint_as_float(u << 16);
+  } else if constexpr (KIND == kF32) {
+    return *static_cast<const float*>(p);
+  } else {
+    return __double2float_rn(*static_cast<const double*>(p));
+  }
+}
+
+template <int KIND>
+__device__ __forceinline__ double decode_at(const void* p, float scale) {
+  if constexpr (KIND == kF64) {
+    return *static_cast<const double*>(p);
+  } else {  // every other kind decodes to an fp32 that widens exactly
+    return static_cast<double>(decode32_at<KIND>(p, scale));
   }
 }
 

@@ -8,11 +8,16 @@ rejects inputs the kernel does not take; on the card (tests marked
 (``weighted_sum`` in both tile types, ``sort_reduce``, NaN and signed-zero
 columns included, ``scatter_wsum``)
 or within ``rtol=1e-9`` of it and bitwise equal to itself from launch to
-launch (``gram``).  This file imports only the port, so the ``cuda`` tests
-run on a machine without JAX:
+launch (``gram``), also at the register paths' edges: every CMAX bucket
+boundary, N at every stage width +-1, ragged row starts, qchunk not
+dividing a stage, every payload kind with and without a base.  Here, the
+sorting networks the kernel reads from ``csrc/sort_net.cuh`` are checked
+(every 0/1 input up to 16, random keys with ties at 32 and 64), and the
+argument for 32-bit keys.  This file imports only the port, so the
+``cuda`` tests run on a machine without JAX:
 ``python -m pytest -q -m cuda tests/test_torch_agg_reduce.py``.
 """
-import os, sys  # noqa: E401
+import os, re, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src_torch"))
 import numpy as np
 import pytest
@@ -331,6 +336,292 @@ def test_decode_rows_kernel_matches_plain_twin_on_card(cuda_device, kind):
     assert torch.equal(torch.isnan(got), nan)
     assert torch.equal(_bits(got[~nan]), _bits(want[~nan]))
     assert bool((out[:2] == 3.0).all()) and bool((out[7:] == 3.0).all())
+
+
+# ---------------------------------------------------------------------------
+# the robust kernels' register paths: sorting networks, 32-bit keys, stages
+# ---------------------------------------------------------------------------
+_NET_HEADER = os.path.join(os.path.dirname(__file__), "..", "src_torch",
+                           "repro_torch", "kernels", "csrc", "sort_net.cuh")
+#: exchanges of each bucket's network: the optimal 1, 5, 19, Green's 60 at
+#: 16, Batcher's odd-even merge sort at 32 and 64
+NET_SIZES = {2: 1, 4: 5, 8: 19, 16: 60, 32: 191, 64: 543}
+
+
+def _networks():
+    """{n: [(i, j), ...]} as ``csrc/sort_net.cuh`` lists them for the
+    kernel (``REPRO_SORT_NET_<n>(X)``, one ``X(i, j)`` per exchange)."""
+    with open(_NET_HEADER) as f:
+        text = f.read()
+    nets = {}
+    for m in re.finditer(r"#define REPRO_SORT_NET_(\d+)\(X\)"
+                         r"((?:[^\n]*\\\n)*[^\n]*)", text):
+        nets[int(m.group(1))] = [(int(a), int(b)) for a, b in re.findall(
+            r"X\((\d+), (\d+)\)", m.group(2))]
+    return nets
+
+
+def _run_network(net, keys):
+    """Apply the exchanges to each row of ``keys`` (min to i, max to j)."""
+    k = keys.copy()
+    for i, j in net:
+        lo, hi = np.minimum(k[:, i], k[:, j]), np.maximum(k[:, i], k[:, j])
+        k[:, i], k[:, j] = lo, hi
+    return k
+
+
+def test_sort_net_header_lists_one_network_per_bucket():
+    nets = _networks()
+    assert {n: len(v) for n, v in nets.items()} == NET_SIZES
+    for n, net in nets.items():
+        assert all(0 <= i < j < n for i, j in net), n
+
+
+@pytest.mark.parametrize("n", [2, 4, 8, 16])
+def test_sort_networks_sort_every_0_1_input(n):
+    """The 0-1 principle: a comparator network that sorts all 2^n inputs of
+    zeros and ones sorts every input."""
+    x = ((np.arange(2 ** n)[:, None] >> np.arange(n)) & 1).astype(np.int8)
+    got = _run_network(_networks()[n], x)
+    assert (np.diff(got, axis=1) >= 0).all()
+    assert np.array_equal(got.sum(1), x.sum(1))
+
+
+@pytest.mark.parametrize("n", [32, 64])
+def test_sort_networks_sort_random_keys_with_ties(n):
+    """Batcher's networks on random keys drawn from a few values (ties), with
+    the kernel's pad keys above the top C < n rows, against np.sort; the
+    median's ranks lo and hi and every trimmed range come out right."""
+    rng = np.random.default_rng(n)
+    net = _networks()[n]
+    for c in (n // 2 + 1, n - 1, n):
+        keys = rng.integers(0, 7, (4000, n)).astype(np.uint32)
+        keys[:, c:] = 0xFFFFFFFF
+        got = _run_network(net, keys)
+        assert np.array_equal(got, np.sort(keys, axis=1)), c
+        lo, hi = (c - 1) // 2, c // 2
+        want = np.sort(keys[:, :c], axis=1)
+        assert np.array_equal(got[:, [lo, hi]], want[:, [lo, hi]])
+
+
+def _key64(x):
+    """The kernels' 64-bit order key of fp64 values (NaN above +inf)."""
+    u = x.view(np.uint64)
+    k = np.where(u >> np.uint64(63), ~u, u | np.uint64(1 << 63))
+    return np.where(np.isnan(x), np.uint64(0xFFF8000000000000), k)
+
+
+def _key32(f):
+    """The kernels' 32-bit order key of fp32 values (NaN above +inf)."""
+    u = f.view(np.uint32)
+    k = np.where(u >> np.uint32(31), ~u, u | np.uint32(1 << 31))
+    return np.where(np.isnan(f), np.uint32(0xFFC00000), k)
+
+
+def test_32_bit_keys_order_like_the_widened_64_bit_keys():
+    """Where the decoded value is exactly an fp32, its 32-bit key sorts a
+    column in the same order as the 64-bit key of the value widened to fp64
+    (widening is exact and increasing, keeps -0 < +0, and every NaN maps to
+    one key above +inf), so both pick the same elements."""
+    rng = np.random.default_rng(17)
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45,
+                         3.4e38, -3.4e38, 1.0, -1.0], dtype=np.float32)
+    nan_bits = np.array([0x7FC00001, 0xFFC00000, 0x7F800001, 0xFFFFFFFF],
+                        dtype=np.uint32).view(np.float32)
+    f = np.concatenate([
+        rng.normal(0, 1, 3000).astype(np.float32),
+        (rng.integers(-127, 128, 3000).astype(np.float32)
+         * np.float32(1e-40)),                           # subnormal int8
+        specials, nan_bits,
+        rng.integers(0, 2 ** 32, 3000, dtype=np.uint64).astype(np.uint32)
+        .view(np.float32)])                              # every bit pattern
+    with np.errstate(invalid="ignore"):           # signalling NaNs widen
+        k32, k64 = _key32(f), _key64(f.astype(np.float64))
+    o32, o64 = np.argsort(k32, kind="stable"), np.argsort(k64, kind="stable")
+    assert np.array_equal(o32, o64)
+    assert np.array_equal(k32[o32][1:] == k32[o32][:-1],
+                          k64[o64][1:] == k64[o64][:-1])
+    assert (k32[np.isnan(f)] > _key32(np.array([np.inf], np.float32))).all()
+
+
+def test_32_bit_keys_of_decoded_values_order_the_based_values():
+    """A delta payload adds one fp64 base b to every row of a column; for a
+    finite b, x -> fl(x + b) is non-decreasing and keeps NaN, so sorting the
+    decoded fp32 values by their 32-bit keys and then adding b gives the
+    sorted based values (equal as reals; NaNs last)."""
+    rng = np.random.default_rng(18)
+    rows, c = 20000, 16
+    x = (rng.integers(-127, 128, (rows, c)).astype(np.float32)
+         * (10.0 ** rng.uniform(-40, 3, (rows, 1))).astype(np.float32))
+    x[:200] = rng.choice(np.array([0.0, -0.0, np.inf, -np.inf, np.nan,
+                                   1.0, -1.0], np.float32), (200, c))
+    b = rng.normal(0, 1, rows) * 10.0 ** rng.uniform(-45, 45, rows)
+    b[200:400] = -x[200:400, 0].astype(np.float64)      # exact cancellation
+    b[400:600] = 0.0
+    b[600:800] = -0.0
+    with np.errstate(invalid="ignore"):
+        order = np.argsort(_key32(x), axis=1, kind="stable")
+        got = np.take_along_axis(x, order, axis=1).astype(np.float64) \
+            + b[:, None]
+        want = np.sort(x.astype(np.float64) + b[:, None], axis=1)
+    assert np.array_equal(got, want, equal_nan=True)
+
+
+@pytest.mark.parametrize("b", [np.inf, -np.inf, np.nan])
+def test_a_non_finite_base_reduces_by_a_count_of_nans(b):
+    """A column whose base is +-inf or NaN is not sorted: every based value
+    is b or NaN (x NaN, x = -b, or b NaN), so the median is NaN if one is
+    NaN, else b, and the sum of sorted rows [k, C - k) is NaN if more than
+    k are NaN, else b -- numpy's sort and reductions on x + b."""
+    rng = np.random.default_rng(19)
+    c = 9
+    vals = np.array([1.0, -2.0, 0.0, -0.0, np.inf, -np.inf, np.nan],
+                    np.float32)
+    for _ in range(300):
+        x = rng.choice(vals, c)
+        with np.errstate(invalid="ignore"):
+            s = np.sort(x.astype(np.float64) + b)
+            nans = int(np.sum(np.isnan(x) | (x.astype(np.float64) == -b)
+                              | np.isnan(b)))
+        med = np.nan if nans else b
+        assert np.array_equal(med, np.median(s), equal_nan=True)
+        for k in range(c // 2 + 1):
+            acc = 0.0
+            with np.errstate(invalid="ignore"):
+                for r in s[k:c - k]:
+                    acc = acc + r
+            assert np.array_equal(np.nan if nans > k else b, acc,
+                                  equal_nan=True), (x, k)
+
+
+#: C at every CMAX bucket boundary of the register paths
+BOUNDARY_CLIENTS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64]
+#: N: tiny, one less and one more than every stage width the kernels use
+#: (64 to 1024 columns), and an odd N (no row start 16-byte aligned)
+EDGE_N = [1, 3, 63, 65, 127, 129, 255, 257, 511, 513, 1023, 1025, 6923]
+EDGE_KINDS = [k + b for k in KINDS if k != "int8_base"
+              for b in ("", "_base")]
+
+
+def _edge_stack(kind, c, n, rng, qchunk, specials, offset):
+    """A (C, N) stack for the edge grid: any payload kind, with a base when
+    ``kind`` ends in ``_base``, NaN and signed-zero columns where N has
+    room, and the data at a storage offset of ``offset`` elements (still
+    contiguous; row 0 starts that far past a 16-byte boundary)."""
+    dt = kind[:-5] if kind.endswith("_base") else kind
+    scales = None
+    if dt == "int8":
+        q = rng.integers(-127, 128, (c, n), dtype=np.int8)
+        flat = torch.from_numpy(np.concatenate(
+            [np.zeros(offset, np.int8), q.ravel()]))
+        s = 10.0 ** rng.uniform(-40, -1, (c, -(-n // qchunk)))
+        if specials:
+            s[-1, 0] = np.nan
+            s[0, -1] = -0.0
+        scales = torch.from_numpy(s.astype(np.float32))
+    else:
+        x = rng.normal(0, 2, (c, n))
+        if specials:
+            x[:, 0] = rng.choice([-0.0, 0.0], c)
+            if n > 2:
+                x[:, 1] = rng.choice([-0.0, 0.0, 1.0, -1.0], c)
+                x[rng.integers(0, c, 2), rng.integers(1, n, 2)] = np.nan
+            x[:, n - 1] = np.nan
+        flat = torch.from_numpy(np.concatenate(
+            [np.zeros(offset), x.ravel()])).to(getattr(torch, dt))
+    data = flat[offset:].view(c, n)
+    base = None
+    if kind.endswith("_base"):
+        b = rng.normal(0, 1, n)
+        if specials:                 # columns whose base is not finite
+            b[0] = np.inf
+            b[n // 2] = -np.inf
+            b[n - 1 - n // 3] = np.nan
+        base = torch.from_numpy(b)
+    return data, dict(scales=scales, qchunk=qchunk, base=base)
+
+
+def _edge_cases(c):
+    """(N, qchunk, storage offset) of the edge grid for C clients: qchunk
+    1024, 1000 and 3 in turn (1000 and 3 divide no stage width)."""
+    return [(n, (1024, 1000, 3)[i % 3], (i + c) % 2)
+            for i, n in enumerate(EDGE_N)]
+
+
+def _to(kw, dev):
+    return {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in kw.items()}
+
+
+def _on_card(data, dev):
+    """``data`` on the card at the same storage offset (so its rows keep
+    their alignment)."""
+    off = data.storage_offset()
+    flat = torch.empty(off + data.numel(), dtype=data.dtype, device=dev)
+    flat[off:] = data.reshape(-1).to(dev)
+    return flat[off:].view(data.shape)
+
+
+def test_edge_stacks_on_cpu_run_the_twins():
+    """The edge grid's stacks (storage offsets, tiny N, any kind with a
+    base) through the wrappers on the CPU: the twins, no launch."""
+    rng = np.random.default_rng(33)
+    before = dict(agg_reduce.LAUNCHES)
+    for kind in ("int8_base", "float16", "float32_base"):
+        data, kw = _edge_stack(kind, 5, 3, rng, 3, True, 1)
+        assert data.storage_offset() == 1 and data.is_contiguous()
+        med = agg_reduce.sort_reduce(data, kind="median", **kw)
+        x = agg_reduce._decoded_plain(data, kw["scales"], 3, kw["base"])
+        fin = ~torch.isnan(x).any(0)
+        s = torch.sort(x, dim=0).values
+        assert torch.equal(med[fin], (0.0 + s[2])[fin])
+        assert torch.isnan(med[~fin]).all()
+    assert agg_reduce.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clients", BOUNDARY_CLIENTS)
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_sort_reduce_kernel_at_the_edges_matches_twin_on_card(
+        cuda_device, kind, clients):
+    """Every CMAX bucket boundary, N at every stage width +-1, ragged row
+    starts, qchunk not dividing a stage, every kind with and without a
+    base, NaN and signed-zero columns: bitwise the twin."""
+    rng = np.random.default_rng(clients)
+    for n, qchunk, off in _edge_cases(clients):
+        data, kw = _edge_stack(kind, clients, n, rng, qchunk, True, off)
+        dev = _to(kw, cuda_device)
+        ddata = _on_card(data, cuda_device)
+        for op, k in [("median", 0)] + [("trim_sum", k) for k in
+                                        sorted({0, 1, clients // 3})
+                                        if clients - 2 * k >= 1]:
+            want = agg_reduce.sort_reduce_plain(data, kind=op, trim_k=k,
+                                                **kw)
+            got = agg_reduce.sort_reduce(ddata, kind=op, trim_k=k, **dev)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got.cpu()), _bits(want)), \
+                (n, qchunk, off, op, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clients", BOUNDARY_CLIENTS)
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_gram_kernel_at_the_edges_matches_twin_on_card(cuda_device, kind,
+                                                       clients):
+    """The same grid for ``gram``: within 1e-9 of the twin, bitwise equal
+    across two launches."""
+    rng = np.random.default_rng(clients)
+    for n, qchunk, off in _edge_cases(clients):
+        data, kw = _edge_stack(kind, clients, n, rng, qchunk, False, off)
+        dev = _to(kw, cuda_device)
+        ddata = _on_card(data, cuda_device)
+        want = agg_reduce.gram_plain(data, **kw)
+        got = agg_reduce.gram(ddata, **dev)
+        again = agg_reduce.gram(ddata, **dev)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(again)), (n, qchunk, off)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-9, atol=1e-9,
+                                   msg=lambda m: f"{(n, qchunk, off)}: {m}")
 
 
 # ---------------------------------------------------------------------------
