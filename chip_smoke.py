@@ -8,9 +8,11 @@ It builds every CUDA kernel of the port from the sources in the checkout
 (``weighted_sum``, ``sort_reduce``, ``gram``, ``flash_attention``,
 ``rglru_scan``, ``scatter_wsum``, ``secagg_mask``, ``decode_rows``: one
 ``nvcc`` each, all started together), holds each kernel against its plain
-PyTorch twin on the card (``rglru_scan``, ``scatter_wsum``,
-``decode_rows`` and ``weighted_sum``'s fp32 tiles bitwise, ``secagg_mask``
-exactly; ``sort_reduce`` bitwise and ``gram`` to 1e-9 up to 1000 clients,
+PyTorch twin on the card (``rglru_scan``, also at the edges of its
+shared-memory ring and on strided views, ``scatter_wsum``, ``decode_rows``,
+over every payload kind with and without a base, odd N, ``row0`` 1 and 3
+and qchunk 3 and 1000, and ``weighted_sum``'s fp32 tiles bitwise,
+``secagg_mask`` exactly; ``sort_reduce`` bitwise and ``gram`` to 1e-9 up to 1000 clients,
 ``sort_reduce`` also at 20000, in global scratch, and both at the edges of
 their register paths -- every client-count bucket boundary, N at every
 stage width +-1, ragged row starts, qchunk not dividing a stage, every
@@ -438,6 +440,68 @@ def phase_gram_vs_twin(dev):
          clients=sorted({c for _, c, *_ in grid}), n_edges=list(EDGE_N),
          ms_over_64_clients_f32=many_ms)
     return worst, many_ms
+
+
+#: decode_rows' grid: N tiny, one less, equal and one more than the
+#: 16-element int8 chunk, and odd; rows written at row0 0, 1 and 3 (odd
+#: N with odd row0 puts the output off 16 bytes against the payload's
+#: chunks); qchunk 3 and 1000 (windows that split a chunk) and 1024
+DECODE_N = (1, 3, 15, 16, 17, 6923)
+DECODE_ROW0 = (0, 1, 3)
+DECODE_QCHUNK = (3, 1000, 1024)
+
+
+def _bits_equal(got, want) -> bool:
+    """Bitwise equal as int64, NaNs compared by position (the card's NaN
+    payload bits are its own; the reductions canonicalize them)."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)) and bool(torch.equal(
+        got[~nan].view(torch.int64), want[~nan].view(torch.int64)))
+
+
+def phase_decode_vs_twin(dev):
+    """``decode_rows`` against its twin, bitwise (NaNs by position), on 3
+    rows of every payload kind with and without a base, over
+    :data:`DECODE_N` x :data:`DECODE_ROW0` (x :data:`DECODE_QCHUNK` for
+    int8), the payload and the base at storage offsets 0 and 1: each call
+    one launch, and the rows of ``out`` outside ``[row0, row0 + 3)``
+    untouched."""
+    from repro_torch.kernels import agg_reduce as A
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    cases, c = 0, 3
+    for kind in EDGE_KINDS:
+        qchunks = DECODE_QCHUNK if kind.startswith("int8") else (1024,)
+        for n in DECODE_N:
+            for row0 in DECODE_ROW0:
+                for qchunk in qchunks:
+                    off = cases % 2
+                    data, kw = _robust_inputs(gen, kind, c, n, dev, True,
+                                              qchunk)
+                    data = _at_offset(data, off)
+                    if kw["base"] is not None:
+                        kw["base"] = _at_offset(kw["base"], 1 - off)
+                    out = torch.full((c + 4, n), 3.0, dtype=torch.float64,
+                                     device=dev)
+                    before = A.LAUNCHES["decode_rows"]
+                    A.decode_rows(data, out=out, row0=row0, **kw)
+                    want = A.decode_rows_plain(data, **kw)
+                    torch.cuda.synchronize()
+                    tag = f"{kind} N={n} row0={row0} q={qchunk} off={off}"
+                    check(A.LAUNCHES["decode_rows"] == before + 1,
+                          f"decode_rows {tag}: not one launch")
+                    check(_bits_equal(out[row0:row0 + c], want),
+                          f"decode_rows != twin: {tag}")
+                    rest = torch.cat([out[:row0], out[row0 + c:]])
+                    check(bool((rest == 3.0).all()),
+                          f"decode_rows {tag}: wrote outside its rows")
+                    cases += 1
+                    del data, kw, out, want
+    emit("decode_rows_vs_twin", cases=cases, max_abs_diff=0.0,
+         bitwise=True, kinds=list(EDGE_KINDS), n=list(DECODE_N),
+         row0=list(DECODE_ROW0), qchunk=list(DECODE_QCHUNK))
+    return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -1353,10 +1417,46 @@ def _rglru_inputs(gen, B, S, W, dev, h0_zero: bool):
     return a, b, h0
 
 
+def _strided(x, pad_steps: int = 3, pad_cols: int = 5):
+    """``x`` (B, S, W) as a view of a larger tensor: steps [2, S + 2) and
+    columns [1, W + 1) of a (B, S + pad_steps, W + pad_cols) tensor
+    (``pad_steps`` >= 2, ``pad_cols`` >= 1): batch stride
+    (S + pad_steps) (W + pad_cols), not S W; sequence stride W + pad_cols;
+    W contiguous; the start one element past the allocation's."""
+    B, S, W = x.shape
+    big = torch.zeros((B, S + pad_steps, W + pad_cols), dtype=x.dtype,
+                      device=x.device)
+    view = big[:, 2:S + 2, 1:W + 1]
+    view.copy_(x)
+    return view
+
+
+def _rglru_case(RS, a, b, h0, tag: str) -> None:
+    """One launch of ``rglru_scan``, bitwise its twin; h_final the last
+    step."""
+    B, S, W = a.shape
+    before = RS.LAUNCHES["rglru_scan"]
+    ys, hf = RS.rglru_scan(a, b, h0)
+    ys_t, hf_t = RS.rglru_scan_plain(a, b, h0)
+    torch.cuda.synchronize()
+    check(RS.LAUNCHES["rglru_scan"] == before + 1,
+          f"rglru {tag}: not one launch")
+    check(ys.shape == (B, S, W) and hf.shape == (B, W),
+          f"rglru {tag}: shapes {tuple(ys.shape)}")
+    check(torch.equal(ys.view(torch.int32), ys_t.view(torch.int32))
+          and torch.equal(hf.view(torch.int32), hf_t.view(torch.int32)),
+          f"rglru {tag}: kernel != twin, max|d| = "
+          f"{float((ys - ys_t).abs().max())}")
+    check(torch.equal(hf, ys[:, -1]), f"rglru {tag}: h_final != ys[:, -1]")
+
+
 def phase_rglru_vs_twin(dev):
     """``rglru_scan`` against its twin (``h = a[:, t] * h + b[:, t]``, two
     rounded ops a step), bitwise, over B 1/4 x S 1/7/257/4096 x W
-    128/2560/2561 x h0 zero or random; S = 0 launches nothing."""
+    128/2560/2561 x h0 zero or random, then at the ring's edges (B 3): S
+    at one stage -1/0/+1 and at the ring's depth (stages x steps) -1/0/+1,
+    W at the CTA width -1/0/+1, with a, b and h0 contiguous or strided
+    views (:func:`_strided`); S = 0 launches nothing."""
     from repro_torch.kernels import rglru_scan as RS
 
     gen = torch.Generator(device=dev)
@@ -1367,22 +1467,25 @@ def phase_rglru_vs_twin(dev):
             for W in (128, 2560, 2561):
                 for h0_zero in (True, False):
                     a, b, h0 = _rglru_inputs(gen, B, S, W, dev, h0_zero)
-                    ys, hf = RS.rglru_scan(a, b, h0)
-                    ys_t, hf_t = RS.rglru_scan_plain(a, b, h0)
-                    torch.cuda.synchronize()
-                    tag = f"B{B} S{S} W{W} h0={'0' if h0_zero else 'rand'}"
-                    check(ys.shape == (B, S, W) and hf.shape == (B, W),
-                          f"rglru {tag}: shapes {tuple(ys.shape)}")
-                    check(torch.equal(ys.view(torch.int32),
-                                      ys_t.view(torch.int32))
-                          and torch.equal(hf.view(torch.int32),
-                                          hf_t.view(torch.int32)),
-                          f"rglru {tag}: kernel != twin, max|d| = "
-                          f"{float((ys - ys_t).abs().max())}")
-                    check(torch.equal(hf, ys[:, -1]),
-                          f"rglru {tag}: h_final != ys[:, -1]")
+                    _rglru_case(RS, a, b, h0, f"B{B} S{S} W{W} "
+                                f"h0={'0' if h0_zero else 'rand'}")
                     cases += 1
-                    del a, b, h0, ys, hf, ys_t, hf_t
+                    del a, b, h0
+    ring = RS.RING
+    step, depth, cols = ring["steps"], ring["steps"] * ring["stages"], \
+        ring["cols"]
+    edge_s = (step - 1, step, step + 1, depth - 1, depth, depth + 1)
+    edge_w = (cols - 1, cols, cols + 1)
+    for S in edge_s:
+        for W in edge_w:
+            for strided in (False, True):
+                a, b, h0 = _rglru_inputs(gen, 3, S, W, dev, False)
+                if strided:
+                    a, b = _strided(a), _strided(b, 2, 2)
+                    h0 = _strided(h0[:, None])[:, 0]
+                _rglru_case(RS, a, b, h0, f"B3 S{S} W{W} strided={strided}")
+                cases += 1
+                del a, b, h0
     a, b, h0 = _rglru_inputs(gen, 2, 0, 64, dev, False)
     before = RS.LAUNCHES["rglru_scan"]
     ys, hf = RS.rglru_scan(a, b, h0)
@@ -1390,7 +1493,8 @@ def phase_rglru_vs_twin(dev):
           and RS.LAUNCHES["rglru_scan"] == before,
           "rglru S = 0: not the empty ys and h0, or a launch")
     emit("rglru_vs_twin", cases=cases, max_abs_diff=0.0, bitwise=True,
-         empty_sequence_ok=True)
+         empty_sequence_ok=True, ring=ring, edge_s=list(edge_s),
+         edge_w=list(edge_w))
     return 0.0
 
 
@@ -2171,6 +2275,7 @@ def main() -> int:
     secagg_diff = phase_secagg_vs_twin(dev)
     phase_wsum_f32_vs_twin(dev)
     scatter_diff = phase_scatter_vs_twin(dev)
+    decode_diff = phase_decode_vs_twin(dev)
     decode_launches = phase_mixed_round(dev)
     launches = phase_slice()
     robust_launches = phase_robust_slice()
@@ -2212,6 +2317,7 @@ def main() -> int:
         # and reduction); the times at 16 x 50M (q8 deltas under
         # "q8_delta")
         dict(decode, name="decode_rows", source=src + "decode_rows.cu",
+             max_abs_diff=max(decode_diff, decode["max_abs_diff"]),
              replaces="src/repro/fl/flat.py:466, :595 (f64_chunk, the "
                       "numpy engine's per-client decode of a mixed round, "
                       "src/repro/fl/agg_kernels.py:819 _rowstack)",

@@ -8,6 +8,8 @@ fp32, ``h0`` is ``(B, W)`` fp32; the result is every ``h_t`` as ``ys``
 - :func:`rglru_scan` on a CUDA tensor launches ``csrc/rglru_scan.cu``
   (built by ``nvcc`` for ``sm_90a`` at first use, with ``-fmad=false``;
   see :mod:`repro_torch.kernels._build`) or raises; it never falls back.
+  The kernel keeps the sequential chain, one thread per column, and feeds
+  it from a ring of shared-memory stages filled by ``cp.async`` (:data:`RING`).
   On a CPU tensor it runs :func:`rglru_scan_plain`.
 - :func:`rglru_scan_plain` is the twin: the same loop in PyTorch, one
   rounded multiply and one rounded add per step, so the kernel is bitwise
@@ -26,6 +28,12 @@ import torch
 
 #: kernel launches of the wrapper; the main path's runs read it
 LAUNCHES = {"rglru_scan": 0}
+
+#: the kernel's shared-memory ring (``csrc/rglru_scan.cu`` ``kCols``,
+#: ``kSteps``, ``kStages``): columns per CTA, steps per stage, stages.  The
+#: card's edge cases sit on its boundaries; a CPU test holds these to the
+#: source.
+RING = {"cols": 32, "steps": 32, "stages": 6}
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> None:

@@ -12,8 +12,13 @@ launch (``gram``), also at the register paths' edges: every CMAX bucket
 boundary, N at every stage width +-1, ragged row starts, qchunk not
 dividing a stage, every payload kind with and without a base.  Here, the
 sorting networks the kernel reads from ``csrc/sort_net.cuh`` are checked
-(every 0/1 input up to 16, random keys with ties at 32 and 64), and the
-argument for 32-bit keys.  This file imports only the port, so the
+(every 0/1 input up to 16, random keys with ties at 32 and 64), the
+argument for 32-bit keys, and numpy models of ``decode_rows``' index
+arithmetic (the int8 scale-index counter against ``j // qchunk``; the
+head, 16-byte chunk and tail split of a row and the warps' tiles, every
+payload offset, with and without a base); on the card ``decode_rows`` also
+at odd N, misaligned ``row0`` and qchunk 3 and 1000.  This file imports
+only the port, so the
 ``cuda`` tests run on a machine without JAX:
 ``python -m pytest -q -m cuda tests/test_torch_agg_reduce.py``.
 """
@@ -313,29 +318,128 @@ def test_gram_kernel_over_64_clients_matches_twin_on_card(cuda_device, kind,
     torch.testing.assert_close(got.cpu(), want, rtol=1e-9, atol=1e-9)
 
 
+#: kind, N, row0, qchunk: every kind at the first case (a 16-byte aligned
+#: stack), then odd N with row0 1 and 3 (rows off 16 bytes against the
+#: payload's chunks) and, for int8 with a base, qchunk 3 and 1000 (scale
+#: windows that split a chunk)
+DECODE_CARD_CASES = [(k, 3 * 1024 + 77, 2, 1024) for k in KINDS] + [
+    (k, n, row0, 1024) for k in KINDS for n, row0 in ((6923, 1), (17, 3))
+] + [("int8_base", n, row0, q) for n in (6923, 15, 17) for row0 in (1, 3)
+     for q in (3, 1000)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", KINDS)
-def test_decode_rows_kernel_matches_plain_twin_on_card(cuda_device, kind):
+@pytest.mark.parametrize("kind,n,row0,qchunk", DECODE_CARD_CASES)
+def test_decode_rows_kernel_matches_plain_twin_on_card(cuda_device, kind, n,
+                                                       row0, qchunk):
     """The decode-only kernel writes its rows of a larger fp64 stack,
     bitwise the twin (signed zeros kept; NaNs stay NaNs), and nothing
     else."""
     rng = np.random.default_rng(7)
-    data, kw = _stack(kind, 5, 3 * 1024 + 77, rng)
+    data, kw = (_stack(kind, 5, n, rng, qchunk) if n > 96 else
+                _edge_stack(kind, 5, n, rng, qchunk, True, 0))
     dev = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v
            for k, v in kw.items()}
     want = agg_reduce.decode_rows_plain(data, **kw)
-    out = torch.full((8, data.shape[1]), 3.0, dtype=torch.float64,
+    out = torch.full((row0 + 6, data.shape[1]), 3.0, dtype=torch.float64,
                      device=cuda_device)
     before = agg_reduce.LAUNCHES["decode_rows"]
-    agg_reduce.decode_rows(data.to(cuda_device), out=out, row0=2, **dev)
+    agg_reduce.decode_rows(data.to(cuda_device), out=out, row0=row0, **dev)
     torch.cuda.synchronize()
     assert agg_reduce.LAUNCHES["decode_rows"] == before + 1
-    got = out[2:7].cpu()
+    got = out[row0:row0 + 5].cpu()
     # NaN payload bits are the device's (a NaN scale or input stays NaN)
     nan = torch.isnan(want)
     assert torch.equal(torch.isnan(got), nan)
     assert torch.equal(_bits(got[~nan]), _bits(want[~nan]))
-    assert bool((out[:2] == 3.0).all()) and bool((out[7:] == 3.0).all())
+    assert bool((out[:row0] == 3.0).all())
+    assert bool((out[row0 + 5:] == 3.0).all())
+
+
+# ---------------------------------------------------------------------------
+# decode_rows' index arithmetic, modelled in numpy
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("qchunk", [1, 2, 3, 16, 1000, 1024])
+@pytest.mark.parametrize("itemsize", [1, 2, 4, 8])
+def test_chunk_scale_walk_is_floor_division(itemsize, qchunk):
+    """decode_rows' int8 scale index: one division at a chunk's first
+    element j, then a counter stepped at each qchunk boundary over the
+    chunk's 16 / itemsize elements; equal to (j + i) // qchunk for every
+    chunk start j of every row up to N = 4099."""
+    v = 16 // itemsize
+    j = np.arange(0, 4099 - v + 1, dtype=np.int64)
+    s = j // qchunk
+    nxt = (s + 1) * qchunk
+    for i in range(v):
+        cross = (j + i) == nxt
+        s = s + cross
+        nxt = nxt + qchunk * cross
+        np.testing.assert_array_equal(s, (j + i) // qchunk)
+
+
+def _kernel_writes(n, rows, itemsize, pay_off, base):
+    """decode_rows_kernel's writes for a stack of ``rows`` rows of N
+    elements whose first row starts ``pay_off`` bytes past a 16-byte
+    boundary, in numpy terms: per row, the head (elements before the first
+    16-byte aligned one) and the tail (past the last whole 16-byte chunk)
+    by 32 scalar threads; then the tiles.  Without a base a warp's tile is
+    32 chunks of one row from its first chunk; with one it is 31 chunks
+    wide from column 0, the same for every row, each warp decoding the 32
+    chunks that cover it in the row into its stage and writing the tile's
+    elements between the head and the tail.  Checks that each chunk load
+    is 16-byte aligned and that every element is read from the stage slot
+    its chunk filled; returns the count of writes per element."""
+    v = 16 // itemsize
+    written = np.zeros((rows, n), np.int64)
+    for r in range(rows):
+        p = pay_off + r * n * itemsize
+        head = min(n, ((16 - p % 16) % 16) // itemsize)
+        nch = (n - head) // v
+        body_end = head + nch * v
+        assert head < v and n - body_end < v
+        for lane in range(32):               # the scalar head and tail
+            j = lane if lane < 16 else body_end + lane - 16
+            if (j < head) if lane < 16 else (j < n):
+                written[r, j] += 1
+        span = 31 * v if base else 32 * v
+        ntiles = -(-n // span) if base else -(-nch // 32)
+        for tile in range(ntiles):
+            if base:
+                J = tile * span
+                k0 = (J - head) // v if J >= head else -1
+            else:
+                k0 = tile * 32
+                J = head + k0 * v
+            k = k0 + np.arange(32)
+            k = k[(k >= 0) & (k < nch)]
+            assert ((p + (head + k * v) * itemsize) % 16 == 0).all()
+            stage = np.full(32 * v, -1)
+            for kk in k:                       # phase 1: the lanes' chunks
+                stage[(kk - k0) * v:(kk - k0 + 1) * v] = \
+                    head + kk * v + np.arange(v)
+            d = J - (head + k0 * v)
+            assert 0 <= d < v and (base or d == 0)
+            e = np.arange(span)                # phase 2: lane + 32 q
+            j = J + e
+            ok = (j >= head) & (j < body_end)
+            np.testing.assert_array_equal(stage[e[ok] + d], j[ok])
+            np.add.at(written[r], j[ok], 1)
+    return written
+
+
+@pytest.mark.parametrize("base", [False, True])
+@pytest.mark.parametrize("itemsize", [1, 2, 4, 8])
+def test_row_split_writes_every_element_once(itemsize, base):
+    """Every payload offset (a multiple of the item size) of a 3-row stack,
+    N up to 70 and 4099 and 6923 (odd N moves each row's offset), with and
+    without a base: the heads, the tiles and the tails write each element
+    exactly once, every 16-byte payload load aligned.  The fp64 rows are
+    written one element per lane, so the output's offset (row0) plays no
+    part."""
+    for pay_off in range(0, 16, itemsize):
+        for n in list(range(1, 71)) + [4099, 6923]:
+            written = _kernel_writes(n, 3, itemsize, pay_off, base)
+            assert (written == 1).all(), (pay_off, n)
 
 
 # ---------------------------------------------------------------------------

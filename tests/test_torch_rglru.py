@@ -16,10 +16,13 @@ straddle the reference's seq blocks, at that file's tolerance: 1e-5
 held to ``jax.lax.associative_scan`` over the reference model's combine at
 the same tolerance.  Inputs come from a numpy seed.
 
-The ``cuda`` test holds the CUDA kernel bitwise to the twin on the card and
-skips here.  This file imports JAX only inside the tests that need it, so
-``python -m pytest -q -m cuda tests/test_torch_rglru.py`` runs on the card,
-which has no JAX.
+A numpy model of the kernel's shared-memory ring (its stage and tail
+bookkeeping, with the ring's sizes read from ``csrc/rglru_scan.cu``)
+visits every step once and in order, for S across stage boundaries.  The
+``cuda`` test holds the CUDA kernel bitwise to the twin on the card, at the
+ring's edges and on strided views too, and skips here.  This file imports
+JAX only inside the tests that need it, so ``python -m pytest -q -m cuda
+tests/test_torch_rglru.py`` runs on the card, which has no JAX.
 """
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src_torch"))
@@ -183,6 +186,81 @@ def test_eager_scan_matches_associative_scan(S):
     _close(got.numpy(), ys.numpy())
 
 
+# ---------------------------------------------------------------------------
+# the kernel's ring, modelled in numpy
+# ---------------------------------------------------------------------------
+_SRC = os.path.join(os.path.dirname(__file__), "..", "src_torch",
+                    "repro_torch", "kernels", "csrc", "rglru_scan.cu")
+_STEP = RS.RING["steps"]
+_DEPTH = RS.RING["steps"] * RS.RING["stages"]
+_COLS = RS.RING["cols"]
+#: S across the ring's boundaries: below, at and past one stage, the
+#: ring's depth and twice it, and the serving length
+RING_S = sorted({1, 2, _STEP - 1, _STEP, _STEP + 1, 2 * _STEP + 1,
+                 _DEPTH - 1, _DEPTH, _DEPTH + 1, 2 * _DEPTH - 1,
+                 2 * _DEPTH + _STEP + 3, 4096})
+
+
+def test_ring_sizes_match_the_kernel_source():
+    import re
+
+    src = open(_SRC).read()
+    got = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+           for k in ("kCols", "kSteps", "kStages")}
+    assert got == {"kCols": RS.RING["cols"], "kSteps": RS.RING["steps"],
+                   "kStages": RS.RING["stages"]}
+
+
+def _ring_walk(S, steps, stages):
+    """The thread's walk of ``rglru_scan_kernel`` over its ring: the
+    prologue fills stages 0..stages-2, iteration st fills stage
+    st + stages - 1 into the slot stage st - 1 was read from, commits (an
+    empty group past the last stage), waits until all but the stages - 1
+    youngest groups have landed, then runs the steps of stage st that are
+    < S.  Returns the steps in the order the chain ran them; raises where a
+    read finds its slot holding another stage or a copy still in flight,
+    or a copy lands in a slot not yet read."""
+    nst = -(-S // steps)
+    slot = [None] * stages       # the stage whose copies each slot holds
+    groups = []                  # committed groups: the steps each copies
+    read = set()
+
+    def fill(st):
+        prev = slot[st % stages]
+        assert prev is None or prev in read, (st, prev)
+        slot[st % stages] = st
+        t0 = st * steps
+        return [t0 + j for j in range(steps) if j < S - t0]
+
+    for st in range(stages - 1):
+        groups.append(fill(st) if st < nst else [])
+    ran = []
+    for st in range(nst):
+        ahead = st + stages - 1
+        groups.append(fill(ahead) if ahead < nst else [])
+        landed = [t for g in groups[:len(groups) - (stages - 1)] for t in g]
+        assert slot[st % stages] == st
+        t0 = st * steps
+        steps_run = list(range(t0, t0 + steps)) if t0 + steps <= S \
+            else list(range(t0, S))
+        assert set(steps_run) <= set(landed), st
+        assert groups[st] == steps_run
+        ran += steps_run
+        read.add(st)
+    return ran
+
+
+@pytest.mark.parametrize("S", RING_S)
+def test_ring_visits_every_step_once_and_in_order(S):
+    assert _ring_walk(S, _STEP, RS.RING["stages"]) == list(range(S))
+
+
+@pytest.mark.parametrize("stages", [2, 3, 6])
+def test_ring_walk_holds_for_other_depths(stages):
+    for S in (1, _STEP - 1, _STEP * stages + 1, 300):
+        assert _ring_walk(S, _STEP, stages) == list(range(S))
+
+
 def test_rglru_scan_builds_without_fma_contraction():
     f = _build.flags("rglru_scan")
     assert "-fmad=false" in f and "arch=compute_90a,code=sm_90a" in f
@@ -199,14 +277,38 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _strided(x, pad_steps=3, pad_cols=5):
+    """``x`` (B, S, W) as steps [2, S + 2) and columns [1, W + 1) of a
+    larger zero tensor: batch stride not S W, sequence stride not W, W
+    contiguous."""
+    B, S, W = x.shape
+    big = torch.zeros((B, S + pad_steps, W + pad_cols), dtype=x.dtype,
+                      device=x.device)
+    view = big[:, 2:S + 2, 1:W + 1]
+    view.copy_(x)
+    return view
+
+
+#: B, S, W, strided: the first cases, then S at one stage and at the ring's
+#: depth +-1 x W at the CTA width +-1, contiguous and as strided views
+CARD_CASES = [(1, 1, 128, False), (4, 257, 2561, False),
+              (2, 4096, 2560, False), (3, 7, 33, False)] + [
+    (3, S, W, strided)
+    for S in (_STEP - 1, _STEP, _STEP + 1, _DEPTH - 1, _DEPTH, _DEPTH + 1)
+    for W in (_COLS - 1, _COLS, _COLS + 1) for strided in (False, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,W", [(1, 1, 128), (4, 257, 2561),
-                                   (2, 4096, 2560), (3, 7, 33)])
-def test_kernel_equals_twin_bitwise_on_card(cuda_device, B, S, W):
+@pytest.mark.parametrize("B,S,W,strided", CARD_CASES)
+def test_kernel_equals_twin_bitwise_on_card(cuda_device, B, S, W, strided):
     a, b, h0 = [x.to(cuda_device) for x in
                 _t(_inputs(S + W, B, S, W, lo=0.9, hi=1.0))]
     a[:, :, 0] = 0.0
     a[:, :, -1] = 1.0
+    if strided:
+        a, b = _strided(a), _strided(b, 2, 2)
+        h0 = _strided(h0[:, None])[:, 0]
+        assert a.stride(0) != S * W and b.stride(1) != W
     before = RS.LAUNCHES["rglru_scan"]
     ys, hf = RS.rglru_scan(a, b, h0)
     torch.cuda.synchronize()
