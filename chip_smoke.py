@@ -37,7 +37,12 @@ benchmark's 50M x 16 geometry over 8 shard ranges (fp64 and fp32 tiles),
 the 0xF5 sparse fold of 100M-parameter deltas from 8 clients through
 ``scatter_wsum`` (COO and adapter ranges), the SecAgg quickstart
 natively and in FLARE and a DP + TopK round, and ``secagg_mask`` through
-its public entry point ``kernels/ops.py``.  It also folds a
+its public entry point ``kernels/ops.py``; and slice 9's training:
+H2O-Danube-1.8B at full width and depth trained by ``get_train_step`` for
+a few AdamW steps of 4 x 4096 tokens in 4 microbatches (eager, so no
+kernel's count may move), timed and profiled, with the card's fp32 step
+held against the CPU's at 2 layers, remat on against off bitwise, and the
+training launcher's save and resume.  It also folds a
 50M-parameter x 16-client round at the benchmark's geometry (FedAvg,
 then median, trimmed mean and Krum on distinct payloads), times each
 kernel at its main path's shape beside its bound, and prints one JSON
@@ -1363,30 +1368,45 @@ def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
     q32, k32, v32 = q.float(), k.float(), v.float()
     cuda_core_ms = event_ms(lambda: FA.flash_attention(q32, k32, v32,
                                                        **args), reps=2)
-    del q32, k32, v32
     S = f["S"]
     qpos = torch.arange(S, device=dev)[:, None]
     kpos = torch.arange(S, device=dev)[None, :]
     mask = (kpos <= qpos) & (kpos > qpos - f["window"])
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=mask, scale=1.0, enable_gqa=True)
-    # the yardstick's kernels need not be deterministic: they are timed only
+
+    def sdpa(q, k, v):
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, scale=1.0, enable_gqa=True)
+
+    # the yardstick's kernels need not be deterministic: they are timed
+    # only; the fp32 route's yardstick is the same call on the fp32 values
     torch.use_deterministic_algorithms(False)
     try:
-        lib = sdpa().transpose(1, 2)
-        library_ms = event_ms(sdpa)
+        lib = sdpa(q, k, v)().transpose(1, 2)
+        library_ms = event_ms(sdpa(q, k, v))
+        library_f32_ms = event_ms(sdpa(q32, k32, v32), reps=2)
     finally:
         torch.use_deterministic_algorithms(True)
+    del q32, k32, v32
     lib_err = float((lib.float() - twin.float()).abs().max())
     bound_ms, bound_by, fp32_ms, flops = flash_bound(
         f["B"], S, f["H"], f["KV"], f["hd"], f["window"], f["causal"], 2)
+    # the fp32 route's bound: its fp32 bytes against HBM, or its flops
+    # against the fp32 CUDA cores (fp32_ms)
+    f32_bytes = (2 * f["B"] * S * f["H"] * f["hd"]
+                 + 2 * f["B"] * S * f["KV"] * f["hd"]) * 4
+    f32_bound_ms, f32_bound_by = _bound(f32_bytes, flops, FP32_FLOPS)
     shape = (f"B{f['B']} S{S} H{f['H']}/KV{f['KV']} hd{f['hd']} "
              f"window {f['window']} causal, bf16")
     routes = {"tensor_core": {"dtype": "bfloat16", "ms": kernel_ms,
-                              "tflops": flops / kernel_ms / 1e9},
+                              "tflops": flops / kernel_ms / 1e9,
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "library_ms": library_ms},
               "cuda_core": {"dtype": "float32", "ms": cuda_core_ms,
-                            "tflops": flops / cuda_core_ms / 1e9}}
+                            "tflops": flops / cuda_core_ms / 1e9,
+                            "bound_ms": f32_bound_ms,
+                            "bound_by": f32_bound_by,
+                            "library_ms": library_f32_ms}}
     emit("flash_timing", card=card, shape=shape,
          route=FA.flash_route(q.dtype), kernel_ms=kernel_ms,
          kernel_tflops=flops / kernel_ms / 1e9, library_ms=library_ms,
@@ -2252,6 +2272,304 @@ def phase_secagg_timing(dev, card: str):
                 shape="N 65536, P 3 (the benchmark's), weight 3")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training on the card -- H2O-Danube-1.8B at full width (slice 9)
+# ---------------------------------------------------------------------------
+#: the main path's shape: the reference's train_4k sequence length
+#: (config.py INPUT_SHAPES), cut to the 4 sequences one card holds, in 4
+#: microbatches (the reference's memory lever); AdamW at lr 2e-5, reached
+#: after a 4-step linear warmup (cosine over 100 steps), clipped at 1.0.
+#: From random weights Adam's first updates move every weight by about lr
+#: in the direction of a low-rank gradient's sign: the reference's default
+#: 3e-4 with a 1-step warmup, and 1e-4 with a 4-step warmup, each sent the
+#: loss from 8.6-9.8 up to 13.3-13.5 once the updates summed to about
+#: 1.5e-4; here they sum to 5e-5 over the 4 steps.  Batches from
+#: FederatedDataLoader(seed=0), weights from seed 0
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 3
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 2e-5, 4, 100
+#: the card's fp32 step against the port's CPU step (full width, 2 layers,
+#: 2 x 128 tokens in 2 microbatches, one step): loss within 1e-5 and grad
+#: norm within 1e-4 relative, the Adam moments (the step's gradients)
+#: within 1e-3 of each leaf's largest entry (fp32 sums in another order on
+#: each device)
+TRAIN_CPU = dict(layers=2, batch=2, seq=128, micro=2, steps=1)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_MOMENT_TOL = 1e-5, 1e-4, 1e-3
+#: the ops whose kernels are matmuls, split by dtype by the kernel's name:
+#: cuBLAS and CUTLASS spell the operand types into it (on the card, torch
+#: 2.11: bf16 ``nvjet_tst_*``; fp32 ``sm80_xmma_gemm_f32f32_*`` and
+#: ``cutlass_80_simt_sgemm_*``)
+_GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
+             "aten::addbmm")
+_FP32_GEMM_NAMES = ("f32f32", "sgemm", "nvjet_s")
+_BF16_GEMM_NAMES = ("bf16", "nvjet_t")
+
+
+def _launch_counts():
+    from repro_torch.kernels import agg_reduce, flash_attention, rglru_scan
+    from repro_torch.kernels import secagg_mask
+
+    return {f"{m.__name__.rsplit('.', 1)[-1]}.{k}": v
+            for m in (agg_reduce, flash_attention, rglru_scan, secagg_mask)
+            for k, v in m.LAUNCHES.items()}
+
+
+def _train_tcfg(batch: int, seq: int, micro: int):
+    from repro_torch.config import TrainConfig
+
+    return TrainConfig(global_batch=batch, seq_len=seq, microbatches=micro,
+                       optimizer="adamw", grad_clip=1.0,
+                       learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_TOTAL, seed=0)
+
+
+def train_model_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one step (no recompute): 6 x the matmul parameters
+    (all but the embedding table) x tokens, plus 3 x the forward's
+    attention products (QK^T and PV, 4 x hd flops per visible causal
+    pair)."""
+    from repro_torch.models import build_model
+
+    n = build_model(cfg).param_count() - cfg.padded_vocab_size * cfg.d_model
+    pairs = band_pairs(seq, True, cfg.window)
+    attn = 4 * cfg.resolved_head_dim * cfg.num_heads * batch * pairs
+    return 6.0 * n * batch * seq + 3.0 * attn * cfg.num_layers
+
+
+def _profile_split(prof, update_span: str) -> dict:
+    """Device ms of one profiled step by kind: bf16 matmuls, fp32 matmuls
+    (the eager attention's score einsums and their gradients), the
+    optimizer (the kernels under the step's update span) and the rest."""
+    from torch.autograd import DeviceType
+
+    split = {"bf16_matmul": 0.0, "fp32_attention_einsum": 0.0,
+             "other_matmul": 0.0, "optimizer_update": 0.0, "rest": 0.0}
+    total, names, ops, other = 0.0, {}, {}, set()
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        own = sum(k.duration for k in e.kernels) / 1e3
+        total += own
+        if own:
+            ops[e.name] = ops.get(e.name, 0.0) + own
+        for k in e.kernels:
+            names[k.name] = names.get(k.name, 0.0) + k.duration / 1e3
+        if e.name == update_span:
+            split["optimizer_update"] += e.device_time_total / 1e3
+        if e.name not in _GEMM_OPS:
+            continue
+        for k in e.kernels:
+            n = k.name.lower()
+            key = ("bf16_matmul" if any(t in n for t in _BF16_GEMM_NAMES) else
+                   "fp32_attention_einsum"
+                   if any(t in n for t in _FP32_GEMM_NAMES) else
+                   "other_matmul")
+            split[key] += k.duration / 1e3
+            if key == "other_matmul":
+                other.add(k.name[:90])
+    split["rest"] = total - sum(v for k, v in split.items() if k != "rest")
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:15]
+    return dict(split, device_ms=total,
+                top_kernels=[[n[:160], ms] for n, ms in top],
+                top_ops=[[n, ms] for n, ms in top_ops],
+                other_matmul_kernels=sorted(other)[:8])
+
+
+def _train_run(cfg, tcfg, params, dev, steps: int, batches):
+    """``steps`` train steps from ``params`` on ``dev`` through
+    ``get_train_step``; returns the state, the metrics and the host ms of
+    each step (ending in a device sync)."""
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.steps import TrainState, get_train_step
+
+    step_fn = get_train_step(cfg, tcfg, impl="eager", device=dev)
+    state = TrainState(params, make_optimizer(tcfg).init(params),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    # the state alone holds the initial params: each step's old state is
+    # freed as the new one is assigned, as in a training loop
+    del params
+    metrics, times = [], []
+    for b in batches[:steps]:
+        if dev.type == "cuda":
+            ms, (state, m) = sync_ms(lambda: step_fn(state, b))
+        else:
+            t0 = time.perf_counter()
+            state, m = step_fn(state, b)
+            ms = (time.perf_counter() - t0) * 1e3
+        metrics.append({k: float(v) for k, v in m.items()})
+        times.append(ms)
+    return state, metrics, times
+
+
+def _moments_excess(a, b):
+    """(max over leaves of |a - b| / (tol x the leaf's largest |b|), the
+    leaf's path)."""
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+
+    worst = (0.0, "")
+    for (path, x), (_, y) in zip(tree_flatten_with_paths(a),
+                                 tree_flatten_with_paths(b)):
+        x, y = x.double().cpu(), y.double().cpu()
+        scale = float(y.abs().max()) or 1.0
+        worst = max(worst, (float((x - y).abs().max())
+                            / (TRAIN_MOMENT_TOL * scale), path))
+    return worst
+
+
+def phase_train(dev, card: str):
+    """Slice 9's main path: H2O-Danube-1.8B at full width and depth (24 x
+    2560, ~1.83B parameters) trained by ``get_train_step(cfg, tcfg,
+    impl="eager")`` for ``TRAIN_STEPS`` AdamW steps of 4 x 4096 tokens in 4
+    microbatches, remat on; then the card's fp32 step against the port's
+    CPU step at full width and 2 layers, remat on and off bitwise, and the
+    launcher's save and resume on the card."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.config import get_model_config
+    from repro_torch.data.loader import FederatedDataLoader
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import UPDATE_SPAN, get_train_step
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    before = _launch_counts()
+    t_phase = time.perf_counter()
+    cfg = get_model_config("h2o-danube-1.8b")
+    check(cfg.remat, "danube's config trains with remat")
+    tcfg = _train_tcfg(TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
+    loader = FederatedDataLoader(cfg.vocab_size, TRAIN_SEQ, 1, TRAIN_BATCH,
+                                 seed=0)
+    batches = [loader.next_batch(0) for _ in range(TRAIN_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    n_params = build_model(cfg).param_count()
+    state, metrics, times = _train_run(
+        cfg, tcfg, build_model(cfg).init(0, device=dev), dev, TRAIN_STEPS,
+        batches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    gnorms = [m["grad_norm"] for m in metrics]
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"train: non-finite loss or grad norm {losses} {gnorms}")
+    check(losses[-1] < losses[0], f"train: losses do not fall {losses}")
+    check(int(state.step) == TRAIN_STEPS, f"train: step {int(state.step)}")
+    check(all(float(m.abs().max()) > 0 for m in tree_leaves(state.opt_state)),
+          "train: an Adam moment is all zero")
+    # one more step under the profiler: the device time by kind
+    step_fn = get_train_step(cfg, tcfg, impl="eager", device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t_prof = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    check(np.isfinite(float(m["loss"])), "train: profiled step's loss")
+    split = _profile_split(prof, UPDATE_SPAN)
+    profile_s = time.perf_counter() - t_prof
+    del prof, state, m
+    torch.cuda.empty_cache()
+    step_ms = float(np.median(times[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tflops = flops / step_ms / 1e9
+
+    # the card's fp32 step against the port's CPU step, full width, 2 layers
+    t_cpu_vs_card = time.perf_counter()
+    small = cfg.replace(num_layers=TRAIN_CPU["layers"], dtype="float32")
+    stcfg = _train_tcfg(TRAIN_CPU["batch"], TRAIN_CPU["seq"],
+                        TRAIN_CPU["micro"])
+    sl = FederatedDataLoader(cfg.vocab_size, TRAIN_CPU["seq"], 1,
+                             TRAIN_CPU["batch"], seed=0)
+    sbatches = [sl.next_batch(0) for _ in range(TRAIN_CPU["steps"])]
+    cpu = torch.device("cpu")
+    p_card = build_model(small).init(0, device=dev)
+    p_cpu = tree_map(lambda t: t.to(cpu), p_card)
+    st_card, m_card, _ = _train_run(small, stcfg, p_card, dev,
+                                    TRAIN_CPU["steps"], sbatches)
+    st_cpu, m_cpu, t_cpu = _train_run(small, stcfg, p_cpu, cpu,
+                                      TRAIN_CPU["steps"], sbatches)
+    del p_card, p_cpu
+    loss_rel = max(abs(a["loss"] / b["loss"] - 1)
+                   for a, b in zip(m_card, m_cpu))
+    gnorm_rel = max(abs(a["grad_norm"] / b["grad_norm"] - 1)
+                    for a, b in zip(m_card, m_cpu))
+    mom, mom_leaf = _moments_excess(st_card.opt_state, st_cpu.opt_state)
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"train: card vs CPU loss rel diff {loss_rel}")
+    check(gnorm_rel <= TRAIN_GNORM_RTOL,
+          f"train: card vs CPU grad norm rel diff {gnorm_rel}")
+    check(mom <= 1.0, f"train: card vs CPU moments excess {mom}")
+    param_diff = max(float((a.cpu() - b).abs().max()) for a, b in
+                     zip(tree_leaves(st_card.params),
+                         tree_leaves(st_cpu.params)))
+    del st_cpu, st_card
+
+    # remat on and off, bitwise, at the main path's shape with 2 layers
+    t_remat = time.perf_counter()
+    two = cfg.replace(num_layers=TRAIN_CPU["layers"])
+    outs = [_train_run(two.replace(remat=r), tcfg,
+                       build_model(two).init(0, device=dev), dev, 1, batches)
+            for r in (True, False)]
+    (sa, ma, _), (sb, mb, _) = outs
+    remat_bitwise = ma == mb and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(sa), tree_leaves(sb)))
+    check(remat_bitwise, f"train: remat on != off {ma} {mb}")
+    del outs, sa, sb
+    torch.cuda.empty_cache()
+
+    # the launcher: train, save, resume on the card
+    t_launcher = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        common = ["--smoke", "--batch", "2", "--seq", "64", "--ckpt-dir", d,
+                  "--log-every", "2"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            launch_train.main(common + ["--steps", "4", "--ckpt-every", "2"])
+            launch_train.main(common + ["--steps", "6"])
+        log = out.getvalue()
+        saved = sorted(os.listdir(d))
+    done = float(log.strip().splitlines()[-1].split()[-1])
+    check("resumed from step 4" in log and np.isfinite(done)
+          and "ckpt_00000006.npz" in saved,
+          f"train: launcher did not save and resume: {log!r} {saved}")
+
+    after = _launch_counts()
+    check(after == before, f"train: a kernel launched during training "
+                           f"{before} -> {after}")
+    emit("train", card=card, arch=cfg.name, params=n_params,
+         layers=cfg.num_layers, d_model=cfg.d_model, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, microbatches=TRAIN_MICRO, optimizer="adamw",
+         lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, remat=cfg.remat,
+         losses=losses, grad_norms=gnorms,
+         step_ms=times, step_ms_median=step_ms,
+         tokens_per_s=tokens / step_ms * 1e3, model_tflop=flops / 1e12,
+         model_tflops=tflops, bf16_peak_share=tflops * 1e12
+         / BF16_TENSOR_FLOPS, peak_mem_gb=peak / 1e9,
+         profiled_step_ms=profiled_ms, profile_ms=split,
+         # the profiled step's device time over an unprofiled step's wall
+         # time: the profiler's own host work slows the profiled step
+         device_busy_share=split["device_ms"] / step_ms,
+         cpu_vs_card=dict(layers=TRAIN_CPU["layers"], dtype="float32",
+                          loss_max_rel_diff=loss_rel, loss_rtol=TRAIN_LOSS_RTOL,
+                          grad_norm_max_rel_diff=gnorm_rel,
+                          grad_norm_rtol=TRAIN_GNORM_RTOL,
+                          moments_excess=mom, moments_worst_leaf=mom_leaf,
+                          moment_tol=TRAIN_MOMENT_TOL,
+                          params_max_abs_diff=param_diff,
+                          cpu_step_ms=t_cpu, losses=[m["loss"] for m in m_card]),
+         remat_on_off_bitwise=remat_bitwise, launcher_done_loss=done,
+         part_s={"full_width_training": t_cpu_vs_card - t_phase,
+                 "of_which_profile": profile_s,
+                 "cpu_vs_card": t_remat - t_cpu_vs_card,
+                 "remat": t_launcher - t_remat,
+                 "launcher": time.perf_counter() - t_launcher},
+         kernel_launches=after)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -2291,6 +2609,7 @@ def main() -> int:
     scatter = phase_sparse_fold(dev, card)
     phase_secagg_slice()
     secagg = phase_secagg_timing(dev, card)
+    phase_train(dev, card)
     src = "src_torch/repro_torch/kernels/csrc/"
     lines = [
         # the fp32-tile mode (the sharded fold's tile_dtype="float32") under

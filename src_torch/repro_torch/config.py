@@ -1,7 +1,9 @@
 """Configuration system (port of ``repro/config.py``).
 
-Every architecture is described by a :class:`ModelConfig`; serving by
-:class:`ServeConfig`.  Architectures register themselves in
+Every architecture is described by a :class:`ModelConfig`; training /
+serving / federated-learning behaviour by :class:`TrainConfig`,
+:class:`ServeConfig` and :class:`FLConfig`.  Architectures register
+themselves in
 :data:`ARCH_REGISTRY` (populated by ``repro_torch.configs``) and are
 selectable via ``--arch <id>``.  The port registers only the families it
 runs (:func:`list_archs`); the others come with their families' slices.
@@ -141,6 +143,12 @@ class ModelConfig:
         return (pat * reps)[: self.num_layers]
 
     @property
+    def is_subquadratic(self) -> bool:
+        """True when decode over very long context needs no full attention."""
+        kinds = set(self.layer_kinds)
+        return not (ATTN in kinds or MLA in kinds) and not self.is_encoder_decoder
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
@@ -149,10 +157,66 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 8
+    seq_len: int = 128
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    optimizer: str = "adamw"         # sgd | momentum | adam | adamw | adafactor
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    z_loss: float = 0.0
+    microbatches: int = 1            # grad-accumulation splits (memory lever)
+    seed: int = 0
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     batch: int = 8
     context_len: int = 2048          # KV cache length for decode
     prefill_len: int = 2048
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (1, 1)
+    axes: Tuple[str, ...] = ("data", "model")
+    fsdp: bool = True                # shard params over the data axis too
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axes
+
+
+@dataclass(frozen=True)
+class FLConfig:
+    """Federated-learning round structure (paper layer)."""
+
+    num_sites: int = 2
+    rounds: int = 3
+    local_steps: int = 10
+    strategy: str = "fedavg"         # fedavg | fedadam | fedyogi | fedprox | ...
+    sync_mode: str = "loose"         # loose (runtime relay) | tight (pod psum)
+    proximal_mu: float = 0.0
+    server_lr: float = 1.0
+    dp_clip: float = 0.0             # 0 disables the DP mod
+    dp_noise_multiplier: float = 0.0
+    secagg: bool = False
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class Experiment:
+    """Everything `--arch X --shape Y` resolves to."""
+
+    model: ModelConfig
+    train: TrainConfig = field(default_factory=TrainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    fl: FLConfig = field(default_factory=FLConfig)
 
 
 # ---------------------------------------------------------------------------
@@ -201,3 +265,12 @@ def list_archs() -> Sequence[str]:
     import repro_torch.configs  # noqa: F401
 
     return sorted(ARCH_REGISTRY)
+
+
+def shape_supported(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Whether (arch, shape) is part of the dry-run matrix."""
+    if shape.name == "long_500k" and not (cfg.is_subquadratic or cfg.window > 0):
+        return False, "full attention is quadratic at 500k context"
+    if shape.name == "long_500k" and cfg.is_encoder_decoder:
+        return False, "enc-dec decoder uses full self+cross attention"
+    return True, ""

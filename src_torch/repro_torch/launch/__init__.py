@@ -1,2 +1,2 @@
-"""Launchers of the port (port of ``repro/launch``): the serving launcher
-and the aggregation mesh."""
+"""Launchers of the port (port of ``repro/launch``): the training and
+serving launchers and the aggregation mesh."""

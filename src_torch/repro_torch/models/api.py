@@ -10,7 +10,9 @@
 ``batch`` is a dict: tokens, labels, and (per family) extra_embeds.
 Parameters are nested dicts of tensors with the reference's keys and
 shapes; :func:`params_from_reference` carries the reference's parameters
-across and :func:`to_arrays` carries them back.  Encoder-decoder models
+across and :func:`to_arrays` carries them back, and
+:func:`train_state_from_reference` / :func:`train_state_to_arrays` do the
+same for a whole training state (params, optimizer moments, step).  Encoder-decoder models
 are ROADMAP queue 1, item 11: they raise.
 """
 from __future__ import annotations
@@ -70,6 +72,16 @@ class Model:
         return transformer.init_cache(self.cfg, batch, max_len,
                                       resolve_device(device))
 
+    def param_count(self) -> int:
+        from repro_torch.models.base import ParamSpec
+
+        def count(sp):
+            if isinstance(sp, ParamSpec):
+                return int(np.prod(sp.shape))
+            return sum(count(v) for v in sp.values())
+
+        return count(self.param_specs())
+
     # ------------------------------------------------------------- inputs
     def batch_keys(self, kind: str) -> Tuple[str, ...]:
         keys = ["tokens"]
@@ -106,3 +118,45 @@ def to_arrays(params):
     if isinstance(params, dict):
         return {k: to_arrays(v) for k, v in params.items()}
     return params.detach().float().cpu().numpy().copy()
+
+
+def _state_classes():
+    from repro_torch.optim.optimizers import AdafactorState, AdamState
+    from repro_torch.train.steps import TrainState
+
+    return {c.__name__: c for c in (AdamState, AdafactorState, TrainState)}
+
+
+def train_state_from_reference(state, device: DeviceLike = None):
+    """The port's ``TrainState`` from the reference's, given as numpy arrays
+    (``jax.tree.map(np.asarray, state)``): params and optimizer moments as
+    fp32 tensors, the step as an int32 scalar, on ``device`` (None: the
+    card).  The reference's ``AdamState`` / ``AdafactorState`` become the
+    port's classes of the same name."""
+    dev = resolve_device(device)
+    classes = _state_classes()
+
+    def conv(a):
+        if isinstance(a, dict):
+            return {k: conv(v) for k, v in a.items()}
+        if isinstance(a, tuple) and hasattr(a, "_fields"):
+            return classes[type(a).__name__](*(conv(v) for v in a))
+        if isinstance(a, (tuple, list)):
+            return type(a)(conv(v) for v in a)
+        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(dev)
+
+    params, opt_state, step = state
+    return classes["TrainState"](
+        params_from_reference(params, dev), conv(opt_state),
+        torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev))
+
+
+def train_state_to_arrays(state):
+    """The inverse of :func:`train_state_from_reference`: the port's
+    ``TrainState`` with host numpy leaves (fp32 params and moments, an
+    int32 step), in the reference's keys and layout."""
+    from repro_torch.utils.pytree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu().numpy().copy()
+                    if t.dtype == torch.int32 else
+                    t.detach().float().cpu().numpy().copy(), state)

@@ -11,7 +11,9 @@ Composes the block library according to ``cfg.layer_kinds``:
   unstacked.
 
 Caches follow the same grouping: {"pos", "pre_i", "scan_p" (stacked),
-"rem_r"}.  The block kinds are attention (full / sliding-window / local)
+"rem_r"}.  With ``cfg.remat`` a training forward that records gradients
+runs each period under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of its scan body): memory, not values, changes.  The block kinds are attention (full / sliding-window / local)
 and RG-LRU (RecurrentGemma: (rglru, rglru, local) periods, 26 = 8x3 + 2);
 the xLSTM blocks (mLSTM, sLSTM), Multi-head Latent Attention and MoE
 layers are ROADMAP queue 1, item 11: they raise.
@@ -21,6 +23,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.config import (ATTENTION_KINDS, ATTN, LOCAL_ATTN, MLSTM,
                                 RGLRU, SLSTM, SWA, ModelConfig)
@@ -145,6 +148,17 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _unbind(tree, n: int) -> List[Dict]:
+    """The ``n`` layers of a stacked tree (views, no copy).  One
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where indexing layer by layer would build a zero-filled stacked-size
+    gradient for every layer (L^2 memory traffic in a training step)."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def _stack(trees: List[Dict]):
     """The per-layer trees stacked on a new leading axis."""
     first = trees[0]
@@ -216,14 +230,31 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, mode: str,
         new_cache[f"pre_{i}"] = nc
 
     # --- stacked periods (the reference's lax.scan) --------------------------
-    if n_periods > 0:
+    layers = [_unbind(params[f"scan_{p}"], n_periods) if n_periods else []
+              for p in range(P)]
+    if n_periods > 0 and cfg.remat and mode == "train" \
+            and torch.is_grad_enabled():
+        # the reference's jax.checkpoint of the scan body: each period keeps
+        # only its input for the backward pass and recomputes the rest
+        def period(i, x, aux_total):
+            for p in range(P):
+                li = n_pre + p
+                x, aux, _ = run(layers[p][i], x, kinds[li],
+                                _is_moe_layer(cfg, li), None)
+                aux_total = aux_total + aux
+            return x, aux_total
+
+        for i in range(n_periods):
+            x, aux_total = torch.utils.checkpoint.checkpoint(
+                period, i, x, aux_total, use_reentrant=False)
+    elif n_periods > 0:
         period_caches: List[List[Dict]] = [[] for _ in range(P)]
         for i in range(n_periods):
             for p in range(P):
                 li = n_pre + p
                 layer_cache = (_index(cache[f"scan_{p}"], i)
                                if cache is not None else None)
-                x, aux, nc = run(_index(params[f"scan_{p}"], i), x, kinds[li],
+                x, aux, nc = run(layers[p][i], x, kinds[li],
                                  _is_moe_layer(cfg, li), layer_cache)
                 aux_total = aux_total + aux
                 period_caches[p].append(nc)

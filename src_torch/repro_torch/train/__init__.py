@@ -1,7 +1,8 @@
-"""Step functions of the port (port of ``repro/train``): serving steps only;
-the training steps come with the training slice (ROADMAP queue 1, item 12)."""
 from repro_torch.train.steps import (  # noqa: F401
-    greedy_generate,
-    make_decode_step,
+    cross_entropy_loss,
+    make_train_step,
     make_prefill_step,
+    make_decode_step,
+    greedy_generate,
+    TrainState,
 )

@@ -34,7 +34,13 @@ EXPECTED = ("repro_torch.fl.agg_kernels", "repro_torch.kernels.agg_reduce",
             "repro_torch.models.recurrent", "repro_torch.kernels.rglru_scan",
             "repro_torch.configs.recurrentgemma_2b",
             "repro_torch.kernels.secagg_mask", "repro_torch.kernels.ops",
-            "repro_torch.fl.mods", "repro_torch.launch.mesh")
+            "repro_torch.fl.mods", "repro_torch.launch.mesh",
+            "repro_torch.optim", "repro_torch.optim.optimizers",
+            "repro_torch.optim.schedules", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.checkpoint", "repro_torch.data.loader",
+            "repro_torch.data.partition", "repro_torch.utils.pytree",
+            "repro_torch.launch.train", "repro_torch.train.steps",
+            "repro_torch.configs.flower_quickstart")
 
 
 def test_importing_every_module_loads_no_reference_dependency():

@@ -134,7 +134,8 @@ def pair(request):
 # configuration
 # ---------------------------------------------------------------------------
 def test_registry_holds_danube_as_the_reference_does():
-    assert TC.list_archs() == ["h2o-danube-1.8b", "recurrentgemma-2b"]
+    assert TC.list_archs() == ["flower-quickstart", "h2o-danube-1.8b",
+                               "recurrentgemma-2b"]
     for smoke in (False, True):
         r = RC.get_model_config("h2o-danube-1.8b", smoke=smoke)
         assert port_config(r) == TC.get_model_config("h2o-danube-1.8b",
