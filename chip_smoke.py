@@ -514,9 +514,10 @@ def phase_decode_vs_twin(dev):
 # ---------------------------------------------------------------------------
 def _history(codec, backend, flare: bool, low_memory: bool = False,
              faults: bool = False, strategy=None, sites=SITES, mods=None,
-             rounds: int = 3):
+             rounds: int = 3, transport: str = "inproc"):
     """One quickstart run of ``rounds`` rounds (FedAvg unless ``strategy``
-    is given; ``mods(site)`` gives a site's client mods)."""
+    is given; ``mods(site)`` gives a site's client mods; ``transport``
+    "tcp" runs the native fleet over loopback sockets)."""
     from repro_torch.core import run_in_flare, run_native
     from repro_torch.fl import FedAvg, ServerApp, ServerConfig
     from repro_torch.fl.quickstart import make_client_app
@@ -524,7 +525,8 @@ def _history(codec, backend, flare: bool, low_memory: bool = False,
     from repro_torch.runtime.transport import FaultSpec
 
     app = ServerApp(config=ServerConfig(num_rounds=rounds, round_timeout=120,
-                                        codec=codec, agg_backend=backend),
+                                        codec=codec, agg_backend=backend,
+                                        transport=transport),
                     strategy=strategy or FedAvg(low_memory=low_memory))
     # the quickstart at its own width: dim 32, hidden 64, 10 classes
     clients = lambda s: make_client_app(  # noqa: E731
@@ -847,9 +849,10 @@ def phase_fold(dev):
                               shape=f"{CLIENTS}x{n} float32, no acc/base")
         del stack
         torch.cuda.empty_cache()
-    emit("fold_50Mx16", params=n, clients=CLIENTS,
-         launches=agg_reduce.LAUNCHES["weighted_sum"], codecs=report)
-    return kernel_row
+    launches = agg_reduce.LAUNCHES["weighted_sum"]
+    emit("fold_50Mx16", params=n, clients=CLIENTS, launches=launches,
+         codecs=report)
+    return dict(kernel_row, fold_launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2570,6 +2573,488 @@ def phase_train(dev, card: str):
          kernel_launches=after)
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the TCP fleet, the federated LLM and the tight-mode round
+# ---------------------------------------------------------------------------
+#: the 16-process TCP round: the reference's
+#: ``test_tcp_16proc_round_bitwise_vs_inproc`` fleet at ``fold_50Mx16``'s
+#: geometry (200 leaves of 250,000 fp32 a client), two rounds
+TCP_PROCS, TCP_ROUNDS = 16, 2
+TCP_CREDITS = 256 << 20
+#: the federated LLM: H2O-Danube-1.8B at full width, depth cut 24 -> 4 (four
+#: sites' fp32 params and Adam moments, 5.3 GB each, share the card); the
+#: example's four sites, 0xF5 TopK deltas at its default 5%, phase train's
+#: TrainConfig, 2 rounds of 1 local step (2 local steps made the phase 325
+#: s on the card, most of it the sites' host work: the rounds stay, the
+#: width stays)
+FED_LAYERS, FED_ROUNDS, FED_LOCAL_STEPS, FED_FRAC = 4, 2, 1, 0.05
+#: the sharded step against the plain one: the reference's
+#: tests/test_federated_llm.py tolerances (loss rtol; params rtol + atol)
+FED_LOSS_RTOL, FED_PARAM_RTOL, FED_PARAM_ATOL = 1e-5, 1e-5, 1e-6
+#: the tight-mode round: 2 pods stacked on the card, 2 local steps each
+TIGHT_PODS, TIGHT_LOCAL_STEPS = 2, 2
+
+
+def _tcp_app(node_id: str):
+    """A SuperNode's app for the TCP round (a spawned process builds it
+    from this module): fit adds a site-derived constant, so the TCP and
+    in-process fleets can be compared bitwise."""
+    from repro_torch.fl import ClientApp, NumPyClient
+
+    idx = int(node_id.rsplit("-", 1)[-1])
+
+    class Shift(NumPyClient):
+        def fit(self, parameters, config):
+            return ([np.asarray(p, np.float32) + np.float32(idx + 1)
+                     for p in parameters], 10 + idx, {})
+
+        def evaluate(self, parameters, config):
+            return (float(sum(np.abs(np.asarray(p, np.float64)).sum()
+                              for p in parameters)), 10 + idx, {})
+
+    return ClientApp(lambda cid: Shift().to_client())
+
+
+class _Timed:
+    """A FitAccumulator that records the host ms of each ``add`` and of
+    ``finalize`` (ending in a device sync) and keeps the first result it
+    was given."""
+
+    def __init__(self, acc, log: dict):
+        self._acc, self._log = acc, log
+
+    def add(self, node, res):
+        self._log.setdefault("first", res)
+        t0 = time.perf_counter()
+        self._acc.add(node, res)
+        self._log.setdefault("add_ms", []).append(
+            (time.perf_counter() - t0) * 1e3)
+
+    def finalize(self, failures):
+        ms, out = sync_ms(lambda: self._acc.finalize(failures))
+        self._log.setdefault("finalize_ms", []).append(ms)
+        return out
+
+
+def _timed_fedavg(log: dict, **kw):
+    from repro_torch.fl import FedAvg
+
+    class TimedFedAvg(FedAvg):
+        def fit_accumulator(self, rnd, current):
+            log.setdefault("opened_s", []).append(time.perf_counter())
+            return _Timed(super().fit_accumulator(rnd, current), log)
+
+    return TimedFedAvg(**kw)
+
+
+def phase_tcp_round(dev, card: str):
+    """Slice 10's transport: 16 SuperNode processes (spawned) connect over
+    loopback TCP to the port's ``TcpSuperLink``; each uploads a
+    50M-parameter fp32 payload; FedAvg folds on the card.  Gate: the
+    history and the aggregate bitwise equal to the same rounds run
+    in-process.  Then the 3-site quickstart over TCP, flat and q8, bitwise
+    ``run_native``'s in-process history."""
+    import multiprocessing as mp
+
+    from repro_torch.core.framing import FT_RES, data_frame_parts, \
+        frame_nbytes
+    from repro_torch.core.superlink import (NativeConnection, SuperLink,
+                                            SuperLinkDriver, SuperNode)
+    from repro_torch.core.transport import TcpSuperLink, run_supernode
+    from repro_torch.fl import ServerApp, ServerConfig, agg_kernels
+    from repro_torch.kernels import agg_reduce as A
+
+    class CountingLink(TcpSuperLink):
+        """The server's link, counting the bytes of every frame."""
+        wire = {"rx": 0, "tx": 0}
+
+        def _on_frame(self, peer, conn, frame):
+            self.wire["rx"] += frame[1].nbytes + 5
+            return super()._on_frame(peer, conn, frame)
+
+        def _send_res(self, peer, msg_id, resp):
+            extra, body = resp
+            self.wire["tx"] += frame_nbytes(data_frame_parts(
+                FT_RES, dict({"i": msg_id}, **extra), body))
+            super()._send_res(peer, msg_id, resp)
+
+    sites = [f"proc-{i}" for i in range(TCP_PROCS)]
+    rng = np.random.default_rng(10)
+    initial = [rng.random(LEAF, np.float32) for _ in range(NLEAVES)]
+
+    def app(log):
+        return ServerApp(ServerConfig(num_rounds=TCP_ROUNDS,
+                                      round_timeout=600.0,
+                                      agg_backend="torch",
+                                      agg_device=dev.type),
+                         _timed_fedavg(log, initial_parameters=initial))
+
+    ref_log = {}
+    link = SuperLink()
+    nodes = [SuperNode(s, _tcp_app(s), NativeConnection(link)) for s in sites]
+    for n in nodes:
+        n.start()
+    try:
+        inproc_s, h_ref = sync_ms(lambda: app(ref_log).run(
+            SuperLinkDriver(link, expected_nodes=TCP_PROCS)))
+    finally:
+        for n in nodes:
+            n.stop()
+    del nodes, link
+    log = {}
+    ctx = mp.get_context("spawn")
+    A.LAUNCHES["weighted_sum"] = 0
+    # a peer's credit window must hold half of its largest frame (the
+    # server drops a peer more than one window over): 256 MB for the 200 MB
+    # payloads (the default 64 MB suits the quickstart's frames)
+    with CountingLink("127.0.0.1", 0, poll_wait=1.0, heartbeat_timeout=120.0,
+                      credits_per_peer=TCP_CREDITS) as tcp:
+        host, port = tcp.address
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=run_supernode,
+                             args=(host, port, s, _tcp_app),
+                             kwargs=dict(run_seconds=900.0,
+                                         max_disconnected=10.0),
+                             daemon=True) for s in sites]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + 300
+            while len(tcp.node_ids()) < TCP_PROCS:
+                check(time.monotonic() < deadline,
+                      f"tcp_round: {len(tcp.node_ids())}/{TCP_PROCS} "
+                      "SuperNodes joined")
+                time.sleep(0.2)
+            join_s = time.perf_counter() - t0
+            tcp.wire.update(rx=0, tx=0)
+            round_ms, h_tcp = sync_ms(lambda: app(log).run(
+                SuperLinkDriver(tcp, expected_nodes=TCP_PROCS)))
+            wire = dict(tcp.wire)
+        finally:
+            tcp.close()
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30)
+    launches = A.LAUNCHES["weighted_sum"]
+    check(h_tcp.losses() == h_ref.losses(), "tcp_round: losses != in-process")
+    check(_same(h_tcp, h_ref), "tcp_round: aggregate != in-process")
+    check(all(not r.failures for r in h_tcp.rounds), "tcp_round: failures")
+    check(launches > 0, "tcp_round: no weighted_sum launch")
+    check(all(not p.is_alive() for p in procs), "tcp_round: a child lived")
+    # the host-to-device copy of one round's 16 payloads, as the fold makes
+    # it (phase fold_50Mx16's h2d_ms, on a payload this round received)
+    src = log["first"].flat.tile_source()
+    h2d_ms, stack = sync_ms(lambda: agg_kernels._device_stack(
+        [src] * TCP_PROCS, dev, {}))
+    del stack
+    nbytes = wire["rx"] + wire["tx"]
+    quick = {}
+    for codec in ("flat", "q8"):
+        native = _history(codec, "torch", flare=False)
+        over_tcp = _history(codec, "torch", flare=False, transport="tcp")
+        check(_same(native, over_tcp),
+              f"tcp_round: quickstart {codec} over TCP != in-process")
+        quick[codec] = [l for _, l in over_tcp.losses()]
+    torch.cuda.empty_cache()
+    per_round = round_ms / TCP_ROUNDS
+    fold = [a + f for a, f in zip(
+        [sum(log["add_ms"][i * TCP_PROCS:(i + 1) * TCP_PROCS])
+         for i in range(TCP_ROUNDS)], log["finalize_ms"])]
+    row = dict(card=card, procs=TCP_PROCS, rounds=TCP_ROUNDS,
+               params=LEAF * NLEAVES, join_s=join_s, run_ms=round_ms,
+               round_ms=per_round, inproc_round_ms=inproc_s / TCP_ROUNDS,
+               wire_bytes=wire, wire_mb_per_s=nbytes / 1e6 / (round_ms / 1e3),
+               fold_ms=fold, finalize_ms=log["finalize_ms"],
+               inproc_fold_ms=[sum(ref_log["add_ms"][i * TCP_PROCS:(i + 1)
+                                                      * TCP_PROCS]) + f
+                               for i, f in enumerate(ref_log["finalize_ms"])],
+               h2d_ms=h2d_ms, weighted_sum_launches=launches,
+               bitwise_vs_inproc=True, quickstart_tcp_losses=quick)
+    emit("tcp_round", **row)
+    return launches
+
+
+def _fed_cfg():
+    from repro_torch.config import get_model_config
+
+    return get_model_config("h2o-danube-1.8b").replace(num_layers=FED_LAYERS)
+
+
+def _params_excess(a, b) -> float:
+    """max over leaves of |a - b| - (atol + rtol |a|), in fp64 (the
+    reference test's ``assert_allclose``): <= 0 passes."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    worst = -float("inf")
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x, y = x.double(), y.double()
+        worst = max(worst, float(((x - y).abs() - (
+            FED_PARAM_ATOL + FED_PARAM_RTOL * x.abs())).max()))
+    return worst
+
+
+def phase_federated_llm(dev, card: str):
+    """Slice 10's main path: the federated-LLM example on the card --
+    H2O-Danube-1.8B at full width and 4 layers, four ``LMClient`` sites on
+    ``make_local_mesh()`` (the sharded step), 0xF5 TopK deltas at 5%,
+    FedAvg through ``run_in_flare`` folding on the card through
+    ``scatter_wsum``.  First the sharded step against the plain one for 2
+    steps; then the federation as the example runs it (the sites overlap),
+    and each site's last fit task handled again one site at a time, so the
+    split of a fit is each piece's own; then round 1's received frames
+    folded again, by the card and by the numpy engine (bitwise), and
+    ``scatter_wsum`` timed at one frame's span."""
+    from repro_torch.data.loader import FederatedDataLoader
+    from repro_torch.examples import federated_llm as ex
+    from repro_torch.fl import ClientApp
+    from repro_torch.fl.flat import FlatParams
+    from repro_torch.fl.messages import decode_fit_res, decode_task_res
+    from repro_torch.fl.strategy import make_strategy
+    from repro_torch.kernels import agg_reduce as A
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import (full_tree, get_train_step,
+                                         make_train_state)
+    from repro_torch.utils.pytree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = _fed_cfg()
+    tcfg = _train_tcfg(TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
+    model = build_model(cfg)
+    mesh = make_local_mesh(device=dev)
+    # -- the sharded step against the plain one, 2 steps from one state
+    loader = FederatedDataLoader(cfg.vocab_size, TRAIN_SEQ, 1, TRAIN_BATCH,
+                                 seed=0)
+    batches = [loader.next_batch(0) for _ in range(2)]
+    plain = get_train_step(cfg, tcfg, device=dev)
+    sharded = get_train_step(cfg, tcfg, mesh=mesh)
+    a = b = make_train_state(model, tcfg, 0, device=dev)
+    step_ms = {"plain": [], "sharded": []}
+    loss_pairs = []
+    for bt in batches:
+        ms, (a, ma) = sync_ms(lambda: plain(a, bt))
+        step_ms["plain"].append(ms)
+        ms, (b, mb) = sync_ms(lambda: sharded(b, bt))
+        step_ms["sharded"].append(ms)
+        loss_pairs.append((float(ma["loss"]), float(mb["loss"])))
+        check(abs(loss_pairs[-1][1] / loss_pairs[-1][0] - 1)
+              <= FED_LOSS_RTOL, f"federated_llm: sharded loss {loss_pairs}")
+    b = full_tree(b)
+    excess = _params_excess(a.params, b.params)
+    check(excess <= 0, f"federated_llm: sharded params off by {excess}")
+    bitwise = all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                     tree_leaves(b)))
+    del a, b, plain
+    torch.cuda.empty_cache()
+
+    # -- the federation as the example runs it: the sites' tasks overlap,
+    # and the timers around each piece serialize nothing.  ``ex.ClientApp``,
+    # ``ex.FedAvg`` and ``ex.params_to_arrays`` are swapped for timed ones
+    # for the run
+    def fresh():
+        return {"steps_ms": [], "to_numpy_ms": [], "fit_handle_ms": [],
+                "eval_handle_ms": [], "fit_wire_bytes": [], "frames": {}}
+
+    rec = fresh()   # the timers write to whatever dict ``rec`` names
+    apps = []
+    to_numpy, client_app, fedavg = ex.params_to_arrays, ex.ClientApp, ex.FedAvg
+
+    def timed_to_numpy(params):
+        ms, out = sync_ms(lambda: to_numpy(params))
+        rec["to_numpy_ms"].append(ms)
+        return out
+
+    class TimedApp(ClientApp):
+        """The site's app, its step and handling timed; it keeps the site's
+        last fit task."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            apps.append(self)
+
+        def handle(self, task_ins_bytes, cid="0"):
+            np_client = self._client(cid).np_client
+            if not getattr(np_client, "_timed", False):
+                step = np_client._step_fn
+
+                def timed_step(state, batch):
+                    ms, out = sync_ms(lambda: step(state, batch))
+                    rec["steps_ms"].append(ms)
+                    return out
+                np_client._step_fn, np_client._timed = timed_step, True
+            t0 = time.perf_counter()
+            out = super().handle(task_ins_bytes, cid)
+            ms = (time.perf_counter() - t0) * 1e3
+            res = decode_task_res(out)
+            if res.task_type == "fit":
+                self.last_fit = (task_ins_bytes, cid)
+                rec["fit_handle_ms"].append(ms)
+                rec["fit_wire_bytes"].append(len(res.payload))
+                if res.round == 1:
+                    rec["frames"][np_client.site] = bytes(res.payload)
+            elif res.task_type == "evaluate":
+                rec["eval_handle_ms"].append(ms)
+            return out
+
+    fold_log = {}
+    before = _launch_counts()
+    A.LAUNCHES["scatter_wsum"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    ex.params_to_arrays, ex.ClientApp = timed_to_numpy, TimedApp
+    ex.FedAvg = lambda: _timed_fedavg(fold_log)
+    try:
+        t0 = time.perf_counter()
+        history = ex.federate(cfg, tcfg, FED_ROUNDS, FED_LOCAL_STEPS,
+                              codec="sparse", sparse_frac=FED_FRAC,
+                              device=dev)
+        t_end = time.perf_counter()
+        launches = A.LAUNCHES["scatter_wsum"]
+        # the split: each site's last fit task again, one site at a time,
+        # so each piece is its own (no other site's host work beside it)
+        run_rec, rec = rec, fresh()
+        for app in sorted(apps, key=lambda x: x.last_fit[1]):
+            app.handle(*app.last_fit)
+    finally:
+        ex.params_to_arrays, ex.ClientApp, ex.FedAvg = (to_numpy, client_app,
+                                                        fedavg)
+    serial_rec, rec = rec, run_rec
+    del apps
+    # the server's fold launches scatter_wsum for the deltas and
+    # weighted_sum for the rest of its sum; training and evaluation run
+    # the eager paths and launch nothing
+    moved = {k: v - before.get(k, 0) for k, v in _launch_counts().items()
+             if v != before.get(k, 0) and k != "agg_reduce.scatter_wsum"}
+    wsum_launches = moved.pop("agg_reduce.weighted_sum", 0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gc_collect()
+    losses = [l for _, l in history.losses()]
+    check(len(losses) == FED_ROUNDS and all(np.isfinite(losses)),
+          f"federated_llm: eval losses {losses}")
+    check(losses[-1] < losses[0], f"federated_llm: loss did not improve "
+                                  f"{losses}")
+    check(all(not r.failures for r in history.rounds),
+          f"federated_llm: failures {[r.failures for r in history.rounds]}")
+    check(launches > 0, "federated_llm: no scatter_wsum launch")
+    check(moved == {}, f"federated_llm: other kernels launched: {moved}")
+    # -- round 1's frames, folded again by the card and the numpy engine
+    current = to_numpy(model.init(0, device=dev))
+    base = FlatParams.from_arrays(current)
+
+    def refold(backend):
+        st = make_strategy("fedavg", backend=backend,
+                           device=dev if backend == "torch" else None)
+        acc = st.fit_accumulator(1, current)
+        for site in sorted(rec["frames"]):
+            r = decode_fit_res(rec["frames"][site])
+            r.sparse.base = base
+            acc.add(site, r)
+        return acc.finalize([])[0]
+
+    A.LAUNCHES["scatter_wsum"] = 0
+    card_ms, got = sync_ms(lambda: refold("torch"))
+    refold_launches = A.LAUNCHES["scatter_wsum"]
+    t0r = time.perf_counter()
+    want = refold("numpy")
+    numpy_ms = (time.perf_counter() - t0r) * 1e3
+    check(all(x.tobytes() == y.tobytes() for x, y in zip(got, want)),
+          "federated_llm: the card's 0xF5 fold != the numpy engine")
+    del got, want
+    sp = decode_fit_res(rec["frames"][sorted(rec["frames"])[0]]).sparse
+    timing = _scatter_timing(dev, sp)
+    timing.update(launches=launches, nnz=sp.nnz,
+                  share_of_bound=timing["bound_ms"] / timing["ms"])
+    # a round: from its fit tasks' dispatch to the next round's (the last
+    # to the run's end), its evaluation included
+    opened = fold_log["opened_s"] + [t_end]
+    round_s = [b - a for a, b in zip(opened, opened[1:])]
+    steps = serial_rec["steps_ms"]
+    split = dict(
+        client_steps_ms=steps,
+        fit_to_numpy_ms=serial_rec["to_numpy_ms"],
+        fit_host_rest_ms=[h - s - t for h, s, t in zip(
+            serial_rec["fit_handle_ms"], steps, serial_rec["to_numpy_ms"])],
+        fit_handle_ms=serial_rec["fit_handle_ms"])
+    run = dict(
+        step_ms=rec["steps_ms"], to_numpy_ms=rec["to_numpy_ms"],
+        fit_handle_ms=rec["fit_handle_ms"],
+        evaluate_ms=rec["eval_handle_ms"],
+        server_add_ms=fold_log["add_ms"],
+        server_finalize_ms=fold_log["finalize_ms"])
+    row = dict(card=card, layers=cfg.num_layers, params=model.param_count(),
+               sites=len(ex.SITES), rounds=FED_ROUNDS,
+               local_steps=FED_LOCAL_STEPS, sparse_frac=FED_FRAC,
+               eval_losses=losses, run_s=t_end - t0, round_s=round_s,
+               run_ms=run, serial_fit_split_ms=split,
+               fit_wire_bytes=rec["fit_wire_bytes"],
+               peak_gb=peak_gb, scatter_wsum_launches=launches,
+               weighted_sum_launches=wsum_launches,
+               refold_launches=refold_launches, refold_card_ms=card_ms,
+               refold_numpy_ms=numpy_ms, fold_bitwise_numpy=True,
+               sharded_vs_plain=dict(step_ms=step_ms, losses=loss_pairs,
+                                     params_excess=excess, bitwise=bitwise),
+               kernel=timing, phase_s=time.perf_counter() - t_phase)
+    emit("federated_llm", **row)
+    del history, current, base, sp, rec, serial_rec, run_rec
+    gc_collect()
+    return timing
+
+
+def gc_collect() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_tight_round(dev, card: str):
+    """Slice 10's tight mode: ``make_fl_round_step`` on the 4-layer danube,
+    two pods stacked on the card, 2 local steps each, then FedAvg over the
+    pod dim.  Gates: params and moments identical across pods after
+    FedAvg, losses finite, no kernel launched (training is eager)."""
+    from repro_torch.core import make_fl_round_step
+    from repro_torch.core.collective import pod_stacked_state
+    from repro_torch.data.loader import FederatedDataLoader
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import make_train_state
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = _fed_cfg()
+    tcfg = _train_tcfg(TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
+    model = build_model(cfg)
+    before = _launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state = pod_stacked_state(make_train_state(model, tcfg, 0, device=dev),
+                              TIGHT_PODS)
+    loader = FederatedDataLoader(cfg.vocab_size, TRAIN_SEQ, TIGHT_PODS,
+                                 TRAIN_BATCH, seed=0)
+    batches = {k: torch.from_numpy(np.stack([
+        np.stack([loader.next_batch(p)[k] for _ in range(TIGHT_LOCAL_STEPS)])
+        for p in range(TIGHT_PODS)])) for k in ("tokens", "labels")}
+    round_fn = make_fl_round_step(model, tcfg, make_local_mesh(device=dev),
+                                  local_steps=TIGHT_LOCAL_STEPS)
+    ms, (new, metrics) = sync_ms(lambda: round_fn(state, batches))
+    del state
+    losses = metrics["round_losses"].float().cpu()
+    check(tuple(losses.shape) == (TIGHT_PODS, TIGHT_LOCAL_STEPS),
+          f"tight_round: losses {tuple(losses.shape)}")
+    check(bool(torch.isfinite(losses).all()), f"tight_round: {losses}")
+    same = all(torch.equal(x[0], x[p]) for x in tree_leaves(new.params)
+               + tree_leaves(new.opt_state) for p in range(1, TIGHT_PODS))
+    check(same, "tight_round: pods differ after FedAvg")
+    moved = {k: v - before.get(k, 0) for k, v in _launch_counts().items()
+             if v != before.get(k, 0)}
+    check(moved == {}, f"tight_round: kernels launched: {moved}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("tight_round", card=card, layers=cfg.num_layers, pods=TIGHT_PODS,
+         local_steps=TIGHT_LOCAL_STEPS, round_ms=ms,
+         losses=losses.tolist(), pods_equal=True, peak_gb=peak_gb)
+    del new, metrics
+    gc_collect()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -2610,6 +3095,9 @@ def main() -> int:
     phase_secagg_slice()
     secagg = phase_secagg_timing(dev, card)
     phase_train(dev, card)
+    tcp_launches = phase_tcp_round(dev, card)
+    fed = phase_federated_llm(dev, card)
+    phase_tight_round(dev, card)
     src = "src_torch/repro_torch/kernels/csrc/"
     lines = [
         # the fp32-tile mode (the sharded fold's tile_dtype="float32") under
@@ -2617,6 +3105,9 @@ def main() -> int:
         dict(name="weighted_sum", source=src + "weighted_sum.cu",
              replaces="src/repro/kernels/agg_reduce.py:200",
              launches=launches, max_abs_diff=max_diff,
+             launches_by_path={"slice": launches,
+                               "fold": row["fold_launches"],
+                               "tcp_round": tcp_launches},
              f32_tile=dict(f32_tile, route="cuda",
                            replaces="src/repro/kernels/agg_reduce.py:92-118,"
                                     " :174-197, :223-232",
@@ -2664,10 +3155,15 @@ def main() -> int:
              launches=rg_launches["rglru_scan"], max_abs_diff=rglru_diff,
              **rglru),
         # launches: the sparse fold's at 100M x 8 (COO 1e-3); the times at
-        # that run's span
+        # that run's span, and at the federated LLM's (one site's 0xF5
+        # delta at 5% of danube's 4-layer 442M) under "federated_llm"
         dict(scatter, name="scatter_wsum", source=src + "scatter_wsum.cu",
              replaces="src/repro/kernels/agg_reduce.py:396",
-             max_abs_diff=max(scatter_diff, scatter["max_abs_diff"])),
+             launches_by_path={"sparse_fold": scatter["launches"],
+                               "federated_llm": fed["launches"]},
+             federated_llm=fed,
+             max_abs_diff=max(scatter_diff, scatter["max_abs_diff"],
+                              fed["max_abs_diff"])),
         # launches: the public entry point at the benchmark's shape; the
         # times there, and at 50M x 15 masks under "at_50M_P15"
         dict(secagg, name="secagg_mask", source=src + "secagg_mask.cu",
@@ -2680,7 +3176,7 @@ def main() -> int:
             "launches_by_path", "launches_by_route",
             "routes", "max_abs_diff_by_route", "hd256", "over_64_clients",
             "q8_delta", "eager_scan_ms", "f32_tile", "wrapper_ms",
-            "at_50M_P15")
+            "at_50M_P15", "federated_llm")
     out = []
     for k in lines:
         k = dict(k, route="cuda", max_abs_err=k["max_abs_diff"],

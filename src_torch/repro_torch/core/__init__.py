@@ -9,3 +9,4 @@ from repro_torch.core.lgc import LGC  # noqa: F401
 from repro_torch.core.interop import (  # noqa: F401
                                       run_native, run_in_flare, run_hierarchical,
                                       )
+from repro_torch.core.collective import tight_fedavg, make_fl_round_step  # noqa: F401

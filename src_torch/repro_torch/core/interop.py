@@ -56,12 +56,31 @@ def run_tcp(server_app: ServerApp,
             server_ssl=None,
             client_ssl_fn: Optional[Callable[[str], object]] = None
             ) -> History:
-    """Native topology over real sockets — not ported yet: the TCP
-    transport (``core/transport.py``, ``core/flowcontrol.py``) is ROADMAP
-    queue 1, item 10."""
-    raise NotImplementedError(
-        "transport='tcp' is not ported to repro_torch yet (ROADMAP.md "
-        "queue 1, item 10); use transport='inproc'")
+    """Native topology over real sockets: a
+    :class:`~repro_torch.core.transport.TcpSuperLink` bound to
+    ``config.bind_host:config.bind_port`` with one TCP-connected
+    SuperNode per site — same apps, same Driver, different wire (the
+    Fig. 5 claim extended from the FLARE bridge to a real network).  The
+    TLS hook point: pass an ``ssl.SSLContext`` for the listener and a
+    per-site context factory for the clients (the tests run plaintext)."""
+    from repro_torch.core.transport import TcpFleetConnection, TcpSuperLink
+    cfg = server_app.config
+    with TcpSuperLink(cfg.bind_host, cfg.bind_port,
+                      ssl_context=server_ssl) as link:
+        host, port = link.address
+        nodes = [SuperNode(s, client_app_fn(s), TcpFleetConnection(
+                     host, port, s,
+                     ssl_context=client_ssl_fn(s) if client_ssl_fn
+                     else None))
+                 for s in sites]
+        for n in nodes:
+            n.start()
+        try:
+            driver = SuperLinkDriver(link, expected_nodes=len(sites))
+            return server_app.run(driver)
+        finally:
+            for n in nodes:
+                n.stop()
 
 
 def run_hierarchical(server_app: ServerApp,

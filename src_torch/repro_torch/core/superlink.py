@@ -417,7 +417,7 @@ class FleetConnection:
     The typed wrappers are what the :class:`SuperNode` loop calls; their
     defaults ride :meth:`unary` with the in-proc msgpack envelopes, so
     existing connections (native, LGS) inherit them unchanged while the
-    socket transport (``core/transport.py``, not ported yet)
+    socket transport (:class:`repro_torch.core.transport.TcpFleetConnection`)
     overrides them with zero-copy framed calls.
     """
 

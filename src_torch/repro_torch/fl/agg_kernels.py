@@ -86,6 +86,7 @@ import numpy as np
 
 from repro_torch.fl.flat import (QCHUNK, FlatParams, Layout, TileSource,
                                  memo_token, np_dtype, to_bf16)
+from repro_torch.sharding import agg_spec, shard_bounds  # noqa: F401
 
 # 16K elements: chunk fp64 accumulator + scratch = 256 KiB, L2-resident.
 # QCHUNK (int8 scale window) divides CHUNK, so quantized reads stay aligned.
@@ -141,31 +142,6 @@ def _host_cores() -> int:
         return len(os.sched_getaffinity(0))
     except (AttributeError, OSError):
         return os.cpu_count() or 1
-
-
-def shard_bounds(total: int, num_shards: int,
-                 align: int = 1) -> Tuple[Tuple[int, int], ...]:
-    """Contiguous ``[lo, hi)`` element ranges splitting a flat ``total``-
-    element vector across ``num_shards`` — the 1-D column partition the
-    sharded server aggregation state lives on.
-
-    Every boundary is a multiple of ``align`` (pass the int8 scale-window
-    size so quantized scale chunks never straddle shards), so shard sizes
-    differ by at most ``align``; trailing shards may be empty when
-    ``total`` is small.
-    """
-    if num_shards <= 0:
-        raise ValueError(f"num_shards must be positive, got {num_shards}")
-    if align <= 0:
-        raise ValueError(f"align must be positive, got {align}")
-    per = -(-total // num_shards)           # ceil
-    per = -(-per // align) * align          # round up to alignment
-    bounds = []
-    for i in range(num_shards):
-        lo = min(i * per, total)
-        hi = min(lo + per, total)
-        bounds.append((lo, hi))
-    return tuple(bounds)
 
 
 def resolve_shards(shards: Optional[int], mesh=None) -> int:

@@ -582,7 +582,7 @@ class QuantParams:
 
         ``(lo, hi)`` selects an element range (shard-aware slicing, all
         zero-copy views).  For int8 payloads ``lo`` must sit on a scale-
-        window boundary — :func:`repro_torch.fl.agg_kernels.shard_bounds` aligns
+        window boundary — :func:`repro_torch.sharding.shard_bounds` aligns
         shard edges to ``qchunk`` exactly so this holds; a misaligned
         range returns ``None`` rather than mis-scaling.
         """

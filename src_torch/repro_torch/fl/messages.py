@@ -79,8 +79,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 # Decoders accept any byte-addressable buffer, not just ``bytes``: the
-# socket transport (``core/transport.py``, not ported yet) hands frames over
-# as read-only memoryviews into its receive buffer, and every zero-copy path below
+# socket transport (repro_torch.core.transport) hands frames over as
+# read-only memoryviews into its receive buffer, and every zero-copy path below
 # (msgpack_lite.unpackb, np.frombuffer, FlatParams.from_buffer) consumes them
 # directly without an intermediate copy.
 Buffer = Union[bytes, bytearray, memoryview]

@@ -81,8 +81,8 @@ class ServerConfig:
     async_concurrency: Optional[int] = None
     async_eval_every: int = 1
     # fleet transport: "inproc" keeps the in-process SuperLink queues;
-    # "tcp" (not ported yet: run_native raises, ROADMAP item 10) serves
-    # the same Fleet API over real sockets with per-peer credit
+    # "tcp" serves the same Fleet API over real sockets
+    # (repro_torch.core.transport.TcpSuperLink) with per-peer credit
     # backpressure, heartbeats, and reconnect-resume.  The app layer is
     # identical either way — run_native() reads these to build the link.
     # bind_port=0 picks an ephemeral port (the link exposes .address).

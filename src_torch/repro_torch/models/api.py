@@ -26,7 +26,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.base import init_params
+from repro_torch.models.base import abstract_params, axes_tree, init_params
 
 
 @dataclass(frozen=True)
@@ -43,6 +43,14 @@ class Model:
     def param_specs(self):
         self._decoder_only()
         return transformer.param_specs(self.cfg)
+
+    def abstract(self):
+        """The parameter tree on the ``meta`` device (shapes and dtypes)."""
+        return abstract_params(self.param_specs(), self.cfg.param_dtype)
+
+    def axes(self):
+        """Each parameter's logical axes (the sharding rules' input)."""
+        return axes_tree(self.param_specs())
 
     def init(self, seed: int, device: DeviceLike = None):
         """Random parameters from ``seed`` on ``device`` (None: the card;
@@ -130,7 +138,8 @@ def _state_classes():
 def train_state_from_reference(state, device: DeviceLike = None):
     """The port's ``TrainState`` from the reference's, given as numpy arrays
     (``jax.tree.map(np.asarray, state)``): params and optimizer moments as
-    fp32 tensors, the step as an int32 scalar, on ``device`` (None: the
+    fp32 tensors, the step as int32 (a scalar, or one per pod of a
+    pod-stacked state), on ``device`` (None: the
     card).  The reference's ``AdamState`` / ``AdafactorState`` become the
     port's classes of the same name."""
     dev = resolve_device(device)
@@ -148,7 +157,7 @@ def train_state_from_reference(state, device: DeviceLike = None):
     params, opt_state, step = state
     return classes["TrainState"](
         params_from_reference(params, dev), conv(opt_state),
-        torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev))
+        torch.from_numpy(np.asarray(step, np.int32).copy()).to(dev))
 
 
 def train_state_to_arrays(state):

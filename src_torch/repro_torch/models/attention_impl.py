@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.sharding import constrain_scores, model_axis_size
 
 IMPLS = ("eager", "flash")
 
@@ -52,6 +53,14 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, hd = q.shape
     KV = k.shape[2]
     g = H // KV
+    # GQA -> MHA expansion when the q-head count shards over "model" but
+    # the kv-head count does not: each model shard then owns its heads'
+    # scores, at the cost of replicating the small (B,S,KV,hd) K/V
+    msz = model_axis_size()
+    if msz > 1 and g > 1 and H % msz == 0 and KV % msz != 0:
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+        KV, g = H, 1
     qg = q.reshape(B, S, KV, g, hd)
     C = _chunk_size(S, chunk)
     # the reference's preferred_element_type=float32: fp32 products, no
@@ -61,14 +70,15 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ctx = []
     for start in range(0, S, C):
         q_chunk = qg[:, start:start + C].float()
-        scores = torch.einsum("bqkgh,bskh->bkgqs", q_chunk, k32)
+        scores = constrain_scores(
+            torch.einsum("bqkgh,bskh->bkgqs", q_chunk, k32))
         qpos = start + torch.arange(C, device=q.device)[:, None]
         mask = torch.ones((C, S), dtype=torch.bool, device=q.device)
         if causal:
             mask &= kpos <= qpos
         if window:
             mask &= kpos > qpos - window
-        scores = torch.where(mask, scores, NEG_INF)
+        scores = constrain_scores(torch.where(mask, scores, NEG_INF))
         w = torch.softmax(scores, dim=-1).to(q.dtype)
         del scores
         ctx.append(torch.einsum("bkgqs,bskh->bqkgh", w, v))

@@ -40,6 +40,19 @@ def map_specs(fn: Callable[[ParamSpec], object], specs):
     return {k: map_specs(fn, v) for k, v in specs.items()}
 
 
+def abstract_params(specs, param_dtype: str = "float32"):
+    """The parameter tree on the ``meta`` device: the shapes and dtypes,
+    no storage (the reference's ``ShapeDtypeStruct`` tree)."""
+    return map_specs(lambda s: torch.empty(
+        s.shape, dtype=getattr(torch, s.dtype or param_dtype),
+        device="meta"), specs)
+
+
+def axes_tree(specs):
+    """Each leaf's logical axes, same keys."""
+    return map_specs(lambda s: s.axes, specs)
+
+
 def iter_leaves(tree, path: str = "") -> Iterator[Tuple[str, object]]:
     """``(path, leaf)`` for every leaf of a nested dict, in key order; the
     path is spelled as ``jax.tree_util.keystr`` spells it

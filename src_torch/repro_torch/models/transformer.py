@@ -29,7 +29,7 @@ from repro_torch.config import (ATTENTION_KINDS, ATTN, LOCAL_ATTN, MLSTM,
                                 RGLRU, SLSTM, SWA, ModelConfig)
 from repro_torch.models import attention, mlp, recurrent
 from repro_torch.models.base import ParamSpec, apply_norm, map_specs, norm_spec
-from repro_torch.sharding import cast_weight
+from repro_torch.sharding import cast_weight, constrain_batch, constrain_logits
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -87,10 +87,10 @@ def apply_layer(params, x, cfg: ModelConfig, kind: str, moe_layer: bool, *,
                                              cache=cache, impl=impl)
     else:
         raise _not_ported(f"block kind {kind!r}")
-    x = x + y
+    x = constrain_batch(x + y)
     if "mlp" in params:
         h = apply_norm(params["norm2"], x, cfg)
-        x = x + mlp.apply(params["mlp"], h, cfg)
+        x = constrain_batch(x + mlp.apply(params["mlp"], h, cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux, (new_cache if new_cache is not None else {})
 
@@ -201,7 +201,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, mode: str,
     B, S = tokens.shape
     dev = params["embed"].device
     # gather, then cast: the same values as the reference's cast-then-gather
-    x = params["embed"][tokens].to(cfg.compute_dtype)
+    x = constrain_batch(params["embed"][tokens].to(cfg.compute_dtype))
     n_prefix = 0
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
@@ -279,7 +279,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, mode: str,
         head = cast_weight(params["embed"], x.dtype, ("vocab", "embed")).T
     else:
         head = cast_weight(params["lm_head"], x.dtype, ("embed", "vocab"))
-    logits = (x @ head).float()
+    logits = constrain_logits((x @ head).float())
     if cfg.logits_softcap:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
     if cfg.padded_vocab_size != cfg.vocab_size:

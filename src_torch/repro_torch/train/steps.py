@@ -7,12 +7,13 @@ them; the port does not ``torch.compile`` them).  Gradients come from
 ``torch.no_grad``.
 
 :func:`get_train_step` is the federated entry point: a process-wide cache
-of train steps keyed by ``(model_cfg, train_cfg, impl, device)``, so N
-simulated FL clients with identical configs share ONE step.  Training runs
-``impl="eager"`` (the reference trains with ``"xla"``); the JAX package
-has no backward kernel, so ``impl="flash"`` raises in training.  The
-mesh-sharded step (``make_sharded_train_step``) is ROADMAP queue 1, item
-13.
+of train steps keyed by ``(model_cfg, train_cfg, impl, mesh or device)``,
+so N simulated FL clients with identical configs share ONE step.  With a
+mesh it is :func:`make_sharded_train_step`: the state and the batch become
+DTensors placed by ``launch/shardings.py`` and the same step body runs on
+them (the reference's ``jit(in_shardings, out_shardings)``).  Training
+runs ``impl="eager"`` (the reference trains with ``"xla"``); the JAX
+package has no backward kernel, so ``impl="flash"`` raises in training.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.api import Model
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.optimizers import clip_by_global_norm
+from repro_torch.sharding import gather_dim
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -45,8 +47,10 @@ def cross_entropy_loss(logits, labels, z_loss: float = 0.0):
     The gold logit is gathered; the reference contracts with a one-hot
     instead (a gather across its sharded vocab dim would replicate the
     logits).  Both give the same value for finite logits: the pad columns
-    hold -1e30, and -1e30 x 0 is -0."""
-    logits = logits.float()
+    hold -1e30, and -1e30 x 0 is -0.  A vocab-sharded DTensor is gathered
+    along the vocab first: DTensor has no rule for a gather across a split
+    dim."""
+    logits = gather_dim(logits.float(), -1)
     labels = torch.as_tensor(labels, device=logits.device).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -65,6 +69,28 @@ def make_train_state(model: Model, train_cfg: TrainConfig, seed: int,
     opt = make_optimizer(train_cfg)
     return TrainState(params, opt.init(params),
                       torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def abstract_opt_state(model: Model, train_cfg: TrainConfig):
+    """The optimizer state of :meth:`Model.abstract` params: ``meta``
+    tensors with the moments' shapes and dtypes."""
+    return make_optimizer(train_cfg).init(model.abstract())
+
+
+def abstract_train_state(model: Model, train_cfg: TrainConfig) -> TrainState:
+    """A ``TrainState`` on the ``meta`` device -- the reference's
+    ``ShapeDtypeStruct`` state: its shapes and dtypes, no storage."""
+    return TrainState(model.abstract(), abstract_opt_state(model, train_cfg),
+                      torch.empty((), dtype=torch.int32, device="meta"))
+
+
+def _acc_(acc: torch.Tensor, x: torch.Tensor) -> None:
+    """``acc += x`` in place; a DTensor ``x`` is first redistributed to
+    the accumulator's placements (an in-place op cannot move ``acc``)."""
+    if hasattr(acc, "placements") and tuple(x.placements) != tuple(
+            acc.placements):
+        x = x.redistribute(acc.device_mesh, acc.placements)
+    acc.add_(x)
 
 
 def _no_flash(impl: str) -> None:
@@ -112,15 +138,16 @@ def make_train_step(model: Model, train_cfg: TrainConfig,
             raise ValueError(f"batch {B} does not split into {M} microbatches")
         b = B // M
         dev = tree_leaves(params)[0].device
-        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                              device=dev), params)
+        # zeros_like: a DTensor param's accumulator keeps its placements
+        gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                        params)
         lsum = torch.zeros((), dtype=torch.float32, device=dev)
         auxsum = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(M):
             micro = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
             (l, met), g = value_and_grad(params, micro)
             with torch.no_grad():
-                tree_map(lambda a, x: a.add_(x.float()), gsum, g)
+                tree_map(lambda a, x: _acc_(a, x.float()), gsum, g)
             del g
             lsum = lsum + l
             auxsum = auxsum + met.get("aux_loss", 0.0)
@@ -159,36 +186,130 @@ def make_train_step(model: Model, train_cfg: TrainConfig,
 # ---------------------------------------------------------------------------
 _STEP_LOCK = threading.Lock()
 _STEP_CACHE: Dict[Any, Any] = {}        # guarded-by: _STEP_LOCK
+#: DTensor's sharding propagation keeps process-wide caches that are not
+#: safe across threads (FL sites step in SuperNode threads): every DTensor
+#: computation of this module holds this lock
+_DTENSOR_LOCK = threading.RLock()
+
+
+def _mesh_key(mesh) -> Any:
+    """Hashable identity of a mesh: axis names, shape, device kind and the
+    ranks it holds (two meshes over different devices must not share a
+    step)."""
+    if mesh is None:
+        return None
+    return (tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape),
+            mesh.device_type, tuple(mesh.mesh.flatten().tolist()))
 
 
 def get_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                    impl: str = "eager", mesh=None, device: DeviceLike = None):
-    """The train step for ``(model_cfg, train_cfg, impl, device)``.
+    """The train step for ``(model_cfg, train_cfg, impl, mesh)``.
 
     Process-wide cache: every FL client with the same config tuple gets
     the SAME callable (the configs are frozen dataclasses -- hashable cache
-    keys).  ``device`` None means the card (raises without one).  A mesh
-    (the reference's fsdp-sharded step) is ROADMAP queue 1, item 13.
+    keys).  With a mesh (a ``DeviceMesh``: :func:`repro_torch.launch.mesh.
+    make_local_mesh`), the step is :func:`make_sharded_train_step` on it;
+    without one, the plain step on ``device`` (None: the card; raises
+    without one).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded train step (make_sharded_train_step) is not "
-            "ported yet: ROADMAP queue 1, item 13")
     _no_flash(impl)
-    dev = resolve_device(device)
-    key = (model_cfg, train_cfg, impl, str(dev))
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh (make_local_mesh), "
+                            f"got {type(mesh).__name__}")
+        if device is not None and torch.device(device).type != \
+                mesh.device_type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device_type}")
+        key = (model_cfg, train_cfg, impl, _mesh_key(mesh))
+    else:
+        dev = resolve_device(device)
+        key = (model_cfg, train_cfg, impl, str(dev))
     with _STEP_LOCK:
         fn = _STEP_CACHE.get(key)
     if fn is not None:
         return fn
     from repro_torch.models.api import build_model
 
-    fn = make_train_step(build_model(model_cfg), train_cfg, impl=impl,
-                         device=dev)
+    model = build_model(model_cfg)
+    if mesh is None:
+        fn = make_train_step(model, train_cfg, impl=impl, device=dev)
+    else:
+        fn = make_sharded_train_step(model, train_cfg, mesh, impl=impl)
     with _STEP_LOCK:
         # racing threads may both build; first write wins so every caller
         # shares one callable afterwards
         return _STEP_CACHE.setdefault(key, fn)
+
+
+def distribute_tree(tree, shardings):
+    """Every leaf of ``tree`` as a DTensor placed by the matching
+    :class:`~repro_torch.sharding.NamedSharding` of ``shardings`` (a tree
+    of the same structure): a plain tensor is moved to the mesh's device
+    and distributed, a DTensor redistributed where its placements differ."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def one(x, sh):
+        want = tuple(sh.placements)
+        if isinstance(x, DTensor):
+            if x.device_mesh is sh.mesh and tuple(x.placements) == want:
+                return x
+            return x.redistribute(sh.mesh, want)
+        return distribute_tensor(torch.as_tensor(x).to(sh.mesh.device_type),
+                                 sh.mesh, want)
+
+    return tree_map(one, tree, shardings)
+
+
+def full_tree(tree):
+    """Every DTensor leaf gathered to a plain tensor (the others as they
+    are)."""
+    from torch.distributed.tensor import DTensor
+
+    with _DTENSOR_LOCK:
+        return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor)
+                        else x, tree)
+
+
+def make_sharded_train_step(model: Model, train_cfg: TrainConfig, mesh,
+                            impl: str = "eager"):
+    """The train step with mesh placements attached.
+
+    ``launch/shardings.py`` maps every TrainState leaf (params AND Adam
+    moments -- the moments shard exactly like their params) plus the
+    token/label batch onto the mesh's fsdp "data"/"model" axes; the
+    returned callable distributes its inputs to those placements, runs the
+    step body of :func:`make_train_step` on the DTensors, and returns the
+    state distributed the same way (the reference's ``in_shardings`` /
+    ``out_shardings``) and the metrics as plain replicated tensors.  Steps
+    from several threads run one at a time (``_DTENSOR_LOCK``).  Plain
+    tensors the body makes (positions, masks, scalars) join as replicated
+    DTensors; DTensor's own rules place every op, and a ``constrain_*``
+    call redistributes where the activation mesh asks.
+    """
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.shardings import batch_shardings, state_shardings
+
+    st_sh = state_shardings(model, train_cfg, mesh)
+    step = make_train_step(model, train_cfg, impl=impl,
+                           device=torch.device(mesh.device_type))
+
+    def sharded_train_step(state: TrainState, batch: Dict
+                           ) -> Tuple[TrainState, Dict]:
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        b_sh = batch_shardings({k: v.shape for k, v in batch.items()}, mesh)
+        with _DTENSOR_LOCK:
+            state = distribute_tree(state, st_sh)
+            batch = {k: distribute_tree(v, b_sh[k]) for k, v in batch.items()}
+            with implicit_replication():
+                state, metrics = step(state, batch)
+            return distribute_tree(state, st_sh), full_tree(metrics)
+
+    return sharded_train_step
 
 
 def make_eval_step(model: Model, impl: str = "eager"):

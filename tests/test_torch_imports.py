@@ -40,7 +40,10 @@ EXPECTED = ("repro_torch.fl.agg_kernels", "repro_torch.kernels.agg_reduce",
             "repro_torch.checkpoint.checkpoint", "repro_torch.data.loader",
             "repro_torch.data.partition", "repro_torch.utils.pytree",
             "repro_torch.launch.train", "repro_torch.train.steps",
-            "repro_torch.configs.flower_quickstart")
+            "repro_torch.configs.flower_quickstart",
+            "repro_torch.core.flowcontrol", "repro_torch.core.transport",
+            "repro_torch.core.collective", "repro_torch.launch.shardings",
+            "repro_torch.sharding", "repro_torch.examples.federated_llm")
 
 
 def test_importing_every_module_loads_no_reference_dependency():

@@ -225,7 +225,9 @@ def test_get_train_step_is_shared_and_never_falls_back(monkeypatch):
     assert TS.get_train_step(tcfg, tt, device="cpu") is a
     assert TS.get_train_step(tcfg, dataclasses.replace(tt, seed=1),
                              device="cpu") is not a
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh gives the sharded step (tests/test_torch_collective.py); a
+    # mesh that is not a DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TS.get_train_step(tcfg, tt, mesh=object(), device="cpu")
     for fn in (lambda: TS.get_train_step(tcfg, tt, impl="flash",
                                          device="cpu"),
