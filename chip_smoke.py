@@ -9,7 +9,9 @@ It builds every CUDA kernel of the port from the sources in the checkout
 ``rglru_scan``, ``scatter_wsum``, ``secagg_mask``, ``decode_rows``: one
 ``nvcc`` each, all started together), holds each kernel against its plain
 PyTorch twin on the card (``rglru_scan``, also at the edges of its
-shared-memory ring and on strided views, ``scatter_wsum``, ``decode_rows``,
+shared-memory ring and on strided views, ``scatter_wsum``, also at the
+edges of its warps' staged chunks and in the sharded 0xF5 fold against
+the numpy engine, ``decode_rows``,
 over every payload kind with and without a base, odd N, ``row0`` 1 and 3
 and qchunk 3 and 1000, and ``weighted_sum``'s fp32 tiles bitwise,
 ``secagg_mask`` exactly; ``sort_reduce`` bitwise and ``gram`` to 1e-9 up to 1000 clients,
@@ -45,7 +47,9 @@ held against the CPU's at 2 layers, remat on against off bitwise, and the
 training launcher's save and resume.  It also folds a
 50M-parameter x 16-client round at the benchmark's geometry (FedAvg,
 then median, trimmed mean and Krum on distinct payloads), times each
-kernel at its main path's shape beside its bound, and prints one JSON
+kernel at its main path's shape beside its bound (``scatter_wsum`` also
+beside its floor, the same read-modify-write with no values, and with
+its wrapper's time split), and prints one JSON
 line per phase.  The line before the last is the ``kernels`` line; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises
 and the script exits non-zero.  It imports nothing of JAX or of the JAX
@@ -1795,60 +1799,140 @@ def phase_wsum_f32_vs_twin(dev):
     return 0.0
 
 
-def phase_scatter_vs_twin(dev):
-    """``scatter_wsum`` against its twin, bitwise: int8 and fp32 values,
-    a slice and unique indices (on the host, checked there and copied; or
-    already on the card), ``pos0`` 0 and 1000 (the windows straddle a
-    qchunk edge), nnz 0 / 1 / 777 / 10**6."""
+def _scatter_case(dev, gen, *, q8, slice_dest, nnz, pos0, voff=0, ioff=0,
+                  d0=12_345, qchunk=1024, host_index=False, m=4_000_037):
+    """One ``scatter_wsum`` call against its twin, bitwise, and its launch
+    count: ``vals`` a view at element ``voff`` of a longer tensor, the
+    index a view at ``ioff`` of a longer sorted unique one (copied to the
+    host first with ``host_index``), or the slice ``acc[d0:d0 + nnz]``."""
     from repro_torch.kernels import agg_reduce
 
+    acc = torch.randn(m, dtype=torch.float64, device=dev, generator=gen)
+    scales = None
+    if q8:
+        vals = torch.randint(-127, 128, (voff + nnz,), dtype=torch.int8,
+                             device=dev, generator=gen)[voff:]
+        scales = 1e-4 + 1e-2 * torch.rand(
+            -(-(pos0 + nnz) // qchunk) + 1, device=dev, generator=gen)
+    else:
+        vals = torch.randn(voff + nnz, device=dev, generator=gen)[voff:]
+    if slice_dest:
+        dest = d0
+    else:
+        dest = torch.sort(torch.randperm(
+            m, device=dev, generator=gen)[:ioff + nnz]).values[ioff:]
+        if host_index:
+            dest = dest.cpu()
+    p0 = pos0 if q8 else 0
+    got, want = acc.clone(), acc.clone()
+    before = agg_reduce.LAUNCHES["scatter_wsum"]
+    agg_reduce.scatter_wsum(got, dest, vals, 2.5, scales=scales,
+                            qchunk=qchunk, pos0=p0)
+    agg_reduce.scatter_wsum_plain(
+        want, dest if slice_dest else dest.to(dev), vals, 2.5,
+        scales=scales, qchunk=qchunk, pos0=p0)
+    torch.cuda.synchronize()
+    tag = (f"q8={q8} slice={slice_dest} nnz={nnz} pos0={p0} voff={voff} "
+           f"ioff={ioff} d0={d0} qchunk={qchunk} host={host_index}")
+    check(agg_reduce.LAUNCHES["scatter_wsum"] == before + (nnz > 0),
+          f"scatter_wsum launches: {tag}")
+    check(torch.equal(got.view(torch.int64), want.view(torch.int64)),
+          f"scatter_wsum != twin: {tag}")
+
+
+def _scatter_sharded_fold(dev):
+    """The sharded 0xF5 fold on the card (shard ranges at lo > 0) against
+    the numpy engine, bitwise: q8 COO and fp32 ranges deltas from 3
+    clients into 3 and 8 shards; returns the launches."""
+    from repro_torch.fl.agg_kernels import StreamingWeightedSum
+    from repro_torch.fl.flat import (FlatParams, SparseDelta, layout_of,
+                                     quantize_int8)
+    from repro_torch.kernels import agg_reduce
+
+    rng = np.random.default_rng(21)
+    arrays = [rng.normal(0, 0.5, (700_001,)).astype(np.float32),
+              rng.normal(0, 0.5, (1_300_003,)).astype(np.float32)]
+    layout = layout_of(arrays)
+    n = layout.total_size
+    base = FlatParams.from_arrays(arrays, layout)
+    deltas = []
+    for c in range(3):
+        idx = np.sort(rng.choice(n, n // 20, replace=False)).astype(np.int64)
+        q, sc = quantize_int8(rng.normal(0, 1e-3, idx.size)
+                              .astype(np.float32))
+        deltas.append(SparseDelta(layout, "coo", idx, q, sc, base=base))
+        starts = np.arange(1000 + 37 * c, n - 5000, 99_991)
+        r = np.stack([starts, starts + 3001], 1).astype(np.int64)
+        deltas.append(SparseDelta(layout, "ranges", r.ravel(),
+                                  rng.normal(0, 1e-3, 3001 * len(starts))
+                                  .astype(np.float32), base=base))
+    launches = 0
+    for shards in (3, 8):
+        outs = []
+        for backend in ("torch", "numpy"):
+            # the numpy engine without its decode pipeline, which (here as
+            # in the reference) hangs on a second sparse arrival
+            acc = StreamingWeightedSum(
+                layout, backend=backend, shards=shards, overlap=False,
+                device=dev if backend == "torch" else None)
+            before = agg_reduce.LAUNCHES["scatter_wsum"]
+            for i, d in enumerate(deltas):
+                acc.add(d, 10.0 + i)
+            launches += agg_reduce.LAUNCHES["scatter_wsum"] - before
+            outs.append(acc.finalize())
+        check(outs[0].buf.tobytes() == outs[1].buf.tobytes(),
+              f"sharded sparse fold ({shards} shards) != numpy engine")
+    return launches
+
+
+def phase_scatter_vs_twin(dev):
+    """``scatter_wsum`` against its twin, bitwise: int8 and fp32 values,
+    a slice and unique indices (on the host, checked on the card after the
+    copy; or already on the card), ``pos0`` 0 and 1000 (the windows
+    straddle a qchunk edge), nnz 0 / 1 / 777 / 10**6; then the kernel's
+    edges: nnz 2, 31 / 33 (a warp's chunk of 32 +- 1), 63 / 65 (a slice's
+    chunk of 64), 15 / 17 and 511 / 513 (16 positions a lane, and a warp's
+    chunk at 16, the A/B tool's variant) and 100,003, values and indices at
+    odd offsets (the staging's scalar head and tail), a slice at odd and
+    even starts (acc's double2 pairs, and its scalar head), spans that
+    cross qchunk edges (pos0 1020 / 1023, and qchunk 3 / 10 / 1000:
+    several edges in a chunk); and the sharded fold, whose shard spans lie
+    at lo > 0, against the numpy engine."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1506)
-    m = 4_000_037
     cases = 0
     for q8 in (True, False):
         for slice_dest in (True, False):
             for nnz in (0, 1, 777, 1_000_000):
                 for pos0 in (0, 1000):
-                    acc = torch.randn(m, dtype=torch.float64, device=dev,
-                                      generator=gen)
-                    scales = None
-                    if q8:
-                        vals = torch.randint(-127, 128, (nnz,),
-                                             dtype=torch.int8, device=dev,
-                                             generator=gen)
-                        scales = 1e-4 + 1e-2 * torch.rand(
-                            -(-(pos0 + nnz) // 1024) + 1, device=dev,
-                            generator=gen)
-                    else:
-                        vals = torch.randn(nnz, device=dev, generator=gen)
-                    if slice_dest:
-                        dest = 12_345
-                    else:
-                        dest = torch.sort(torch.randperm(
-                            m, device=dev, generator=gen)[:nnz]).values
-                        if pos0 == 0:
-                            dest = dest.cpu()      # the host-checked path
-                    p0 = pos0 if q8 else 0
-                    got, want = acc.clone(), acc.clone()
-                    before = agg_reduce.LAUNCHES["scatter_wsum"]
-                    agg_reduce.scatter_wsum(got, dest, vals, 2.5,
-                                            scales=scales, pos0=p0)
-                    agg_reduce.scatter_wsum_plain(
-                        want, dest if slice_dest else dest.to(dev), vals,
-                        2.5, scales=scales, pos0=p0)
-                    torch.cuda.synchronize()
-                    tag = (f"q8={q8} slice={slice_dest} nnz={nnz} "
-                           f"pos0={p0}")
-                    check(agg_reduce.LAUNCHES["scatter_wsum"]
-                          == before + (nnz > 0),
-                          f"scatter_wsum launches: {tag}")
-                    check(torch.equal(got.view(torch.int64),
-                                      want.view(torch.int64)),
-                          f"scatter_wsum != twin: {tag}")
+                    _scatter_case(dev, gen, q8=q8, slice_dest=slice_dest,
+                                  nnz=nnz, pos0=pos0,
+                                  host_index=pos0 == 0)
                     cases += 1
-                    del acc, got, want, vals, dest
-    emit("scatter_vs_twin", cases=cases, max_abs_diff=0.0, bitwise=True)
+            for nnz in (2, 15, 17, 31, 33, 63, 65, 511, 513, 100_003):
+                _scatter_case(dev, gen, q8=q8, slice_dest=slice_dest,
+                              nnz=nnz, pos0=1000)
+                cases += 1
+        for voff in (1, 3, 13):
+            for ioff in (1, 2, 3):
+                _scatter_case(dev, gen, q8=q8, slice_dest=False,
+                              nnz=100_003, pos0=voff, voff=voff, ioff=ioff,
+                              host_index=ioff == 2)
+                cases += 1
+            for d0 in (12_345, 12_346):
+                _scatter_case(dev, gen, q8=q8, slice_dest=True, nnz=100_003,
+                              pos0=voff, voff=voff, d0=d0)
+                cases += 1
+    for slice_dest in (True, False):
+        for pos0, nnz, qchunk in ((1020, 40, 1024), (1023, 40, 1024),
+                                  (7, 5000, 3), (7, 5000, 10),
+                                  (7, 5000, 1000)):
+            _scatter_case(dev, gen, q8=True, slice_dest=slice_dest, nnz=nnz,
+                          pos0=pos0, voff=pos0 % 16, qchunk=qchunk)
+            cases += 1
+    fold_launches = _scatter_sharded_fold(dev)
+    emit("scatter_vs_twin", cases=cases, max_abs_diff=0.0, bitwise=True,
+         sharded_fold_launches=fold_launches, sharded_fold_bitwise=True)
     return 0.0
 
 
@@ -2109,18 +2193,30 @@ def phase_sparse_fold(dev, card: str):
 
 def _scatter_timing(dev, sp):
     """One launch at the main path's span (a whole COO delta on one
-    accumulator): the kernel itself through its C entry point (the
-    wrapper's checks and copies left out), the wrapper as the fold calls
-    it (host indices checked and copied), the twin, and ``index_add_`` of
-    the precomputed contributions (the scatter part alone)."""
+    accumulator), by CUDA events:
+
+    - ``ms``: the kernel through its C entry point (no checks or copies),
+      and ``floor_ms``: ``repro_scatter_floor``, the same read-modify-write
+      of ``acc[idx[i]]`` at the same indices with a constant addend and no
+      values, scales or scale index (in turns: kernel, floor, floor,
+      kernel; each the mean of its two readings);
+    - ``fold_call_ms``: the wrapper as the fold calls it, the index already
+      on the card (checked there: one min/max and one sync);
+    - ``wrapper_ms``: the wrapper with the index on the host, and its split
+      ``wrapper_split_ms``: ``copy_ms`` (the pageable copy of the index to
+      the card), ``check_ms`` (the min/max and its sync), and beside them
+      ``stage_ms``, the fold's once-per-arrival staging of the frame's
+      values, scales and index through its page-locked buffer;
+    - the twin, and ``index_add_`` of the precomputed contributions (the
+      scatter part alone)."""
     from repro_torch.kernels import agg_reduce as A
 
     n = sp.layout.total_size
     acc = torch.zeros(n, dtype=torch.float64, device=dev)
-    vals = A.to_device(sp.values, dev)
-    scales = A.to_device(sp.scales, dev)
+    arrays = (sp.values, sp.scales, sp.indices)
+    stage = A.PinnedStage()
+    vals, scales, idx = stage.to_device(arrays, dev)
     host_idx = A._host_tensor(sp.indices)
-    idx = host_idx.to(dev)
     w = 13.0
     want = acc.clone()
     A.scatter_wsum_plain(want, idx, vals, w, scales=scales)
@@ -2128,7 +2224,12 @@ def _scatter_timing(dev, sp):
     A.scatter_wsum(got, host_idx, vals, w, scales=scales)
     torch.cuda.synchronize()
     check(torch.equal(got.view(torch.int64), want.view(torch.int64)),
-          "scatter_wsum at the main path's span: kernel != twin")
+          "scatter_wsum at the main path's span (host index) != twin")
+    got.copy_(acc)
+    A.scatter_wsum(got, idx, vals, w, scales=scales)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int64), want.view(torch.int64)),
+          "scatter_wsum at the main path's span (staged index) != twin")
     lib = A._kernel_lib("scatter_wsum")
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -2138,9 +2239,25 @@ def _scatter_timing(dev, sp):
             scales.data_ptr(), sp.qchunk, 0, w, sp.nnz, stream)
         check(err == 0, f"scatter_wsum launch: CUDA error {err}")
 
-    ms = event_ms(kernel, reps=50)
+    def floor():
+        err = lib.repro_scatter_floor(got.data_ptr(), idx.data_ptr(), 1.0,
+                                      sp.nnz, stream)
+        check(err == 0, f"scatter_floor launch: CUDA error {err}")
+
+    turns = {"kernel": [], "floor": []}
+    for name in ("kernel", "floor", "floor", "kernel"):
+        turns[name].append(event_ms(kernel if name == "kernel" else floor,
+                                    reps=50))
+    ms, floor_ms = (sum(turns[k]) / 2 for k in ("kernel", "floor"))
+    fold_call_ms = event_ms(lambda: A.scatter_wsum(got, idx, vals, w,
+                                                   scales=scales), reps=20)
     wrapper_ms = event_ms(lambda: A.scatter_wsum(got, host_idx, vals, w,
                                                  scales=scales), reps=20)
+    split = dict(
+        copy_ms=event_ms(lambda: host_idx.to(dev), reps=10),
+        check_ms=event_ms(lambda: torch.stack(torch.aminmax(idx)).tolist(),
+                          reps=20),
+        stage_ms=event_ms(lambda: stage.to_device(arrays, dev), reps=10))
     plain_ms = event_ms(lambda: A.scatter_wsum_plain(
         got, idx, vals, w, scales=scales), reps=5)
     contrib = (vals.float() * scales[torch.arange(
@@ -2152,10 +2269,12 @@ def _scatter_timing(dev, sp):
     finally:
         torch.use_deterministic_algorithms(True)
     bound_ms, bound_by = scatter_bound(sp.nnz, False, True, sp.scales.size)
-    del acc, got, want, contrib
-    return dict(ms=ms, plain_ms=plain_ms, wrapper_ms=wrapper_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_diff=0.0,
+    del acc, got, want, contrib, vals, scales, idx, stage
+    return dict(ms=ms, floor_ms=floor_ms, turns_ms=turns,
+                share_of_floor=floor_ms / ms, plain_ms=plain_ms,
+                fold_call_ms=fold_call_ms, wrapper_ms=wrapper_ms,
+                wrapper_split_ms=split, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_diff=0.0,
                 library_note="index_add_ of precomputed fp64 contributions: "
                              "the scatter part alone",
                 shape=f"{sp.nnz} int8 values at unique indices into {n} "
@@ -3154,14 +3273,16 @@ def main() -> int:
              replaces="src/repro/kernels/rglru_scan.py:51",
              launches=rg_launches["rglru_scan"], max_abs_diff=rglru_diff,
              **rglru),
-        # launches: the sparse fold's at 100M x 8 (COO 1e-3); the times at
-        # that run's span, and at the federated LLM's (one site's 0xF5
-        # delta at 5% of danube's 4-layer 442M) under "federated_llm"
-        dict(scatter, name="scatter_wsum", source=src + "scatter_wsum.cu",
+        # launches: the federated LLM's run (4 sites x 2 rounds); the times
+        # at its span (one site's 0xF5 delta at 5% of danube's 4-layer
+        # 442M: the kernel, its floor, the wrapper as the fold calls it and
+        # with a host index, split), and at the sparse fold's COO 1e-3 span
+        # (100M x 8) under "sparse_fold"
+        dict(fed, name="scatter_wsum", source=src + "scatter_wsum.cu",
              replaces="src/repro/kernels/agg_reduce.py:396",
              launches_by_path={"sparse_fold": scatter["launches"],
                                "federated_llm": fed["launches"]},
-             federated_llm=fed,
+             sparse_fold=scatter,
              max_abs_diff=max(scatter_diff, scatter["max_abs_diff"],
                               fed["max_abs_diff"])),
         # launches: the public entry point at the benchmark's shape; the
@@ -3175,8 +3296,9 @@ def main() -> int:
             "library_ms", "share_of_bound", "gb_per_s", "trim_sum", "shape",
             "launches_by_path", "launches_by_route",
             "routes", "max_abs_diff_by_route", "hd256", "over_64_clients",
-            "q8_delta", "eager_scan_ms", "f32_tile", "wrapper_ms",
-            "at_50M_P15", "federated_llm")
+            "q8_delta", "eager_scan_ms", "f32_tile", "floor_ms",
+            "share_of_floor", "fold_call_ms", "wrapper_ms",
+            "wrapper_split_ms", "at_50M_P15", "sparse_fold")
     out = []
     for k in lines:
         k = dict(k, route="cuda", max_abs_err=k["max_abs_diff"],

@@ -506,6 +506,9 @@ class StreamingWeightedSum:
         # base-deferred: sum_k w_k (d_k + b) == sum_k w_k d_k + W b
         self._deferred: Dict[str, list] = {}
         self._pipe = None
+        # torch backend on a card: the page-locked buffer sparse arrivals
+        # are staged through (made at the first)
+        self._pinned = None
         self._acc = None
         self._sacc: Optional[List[np.ndarray]] = None
         if self.backend == "torch":
@@ -677,25 +680,53 @@ class StreamingWeightedSum:
                              staged: Dict[Any, Any]) -> None:
         """The torch backend's :meth:`_scatter_spans`: one ``scatter_wsum``
         launch per span into the device accumulator ``acc`` (indexed
-        relative to ``lo``), in place.  The packed values and scales go to
-        ``acc``'s device once per arrival (``staged`` keeps them per
-        device); coo indices are checked on the host and copied with their
-        launch."""
+        relative to ``lo``), in place.  The arrival's packed values, scales
+        and coo index go to ``acc``'s device once per arrival
+        (:meth:`_stage_sparse`); a coo span is a slice of the staged index,
+        found by a host binary search and shifted on the device when
+        ``lo > 0``, and the wrapper checks it there."""
         from repro_torch.kernels import agg_reduce
 
-        dev = acc.device
-        for p0, p1, dest in sp.iter_spans(lo, hi):
-            if dev not in staged:
-                staged[dev] = (
-                    agg_reduce.to_device(sp.values, dev),
-                    None if sp.scales is None
-                    else agg_reduce.to_device(sp.scales, dev))
-            vals, scales = staged[dev]
-            d = dest.start if isinstance(dest, slice) \
-                else agg_reduce._host_tensor(dest)
-            agg_reduce.scatter_wsum(acc, d, vals[p0:p1], float(sw),
+        if sp.imode == "coo":
+            i0, i1 = (int(i) for i in np.searchsorted(sp.indices, (lo, hi)))
+            spans = [(i0, i1, None)] if i1 > i0 else []
+        else:
+            spans = list(sp.iter_spans(lo, hi))
+        if not spans:
+            return
+        vals, scales, index = self._stage_sparse(sp, acc.device, staged)
+        for p0, p1, dest in spans:
+            if dest is None:
+                dest = index[p0:p1]
+                if lo:
+                    dest = dest - lo
+            else:
+                dest = dest.start
+            agg_reduce.scatter_wsum(acc, dest, vals[p0:p1], float(sw),
                                     scales=scales, qchunk=sp.qchunk,
                                     pos0=p0)
+
+    def _stage_sparse(self, sp, dev, staged: Dict[Any, Any]):
+        """``(values, scales, index)`` of sparse arrival ``sp`` as tensors
+        on ``dev`` (scales None for fp32 values, index None for ranges),
+        made once per arrival and device and kept in ``staged``.  On the CPU
+        they are views of the frame's arrays; to a card they go through the
+        accumulator's reused page-locked buffer
+        (:class:`~repro_torch.kernels.agg_reduce.PinnedStage`)."""
+        from repro_torch.kernels import agg_reduce
+
+        if dev not in staged:
+            arrays = (sp.values, sp.scales,
+                      sp.indices if sp.imode == "coo" else None)
+            if dev.type == "cpu":
+                staged[dev] = [None if a is None
+                               else agg_reduce._host_tensor(a)
+                               for a in arrays]
+            else:
+                if self._pinned is None:
+                    self._pinned = agg_reduce.PinnedStage()
+                staged[dev] = self._pinned.to_device(arrays, dev)
+        return staged[dev]
 
     def _apply_deferred(self, acc: np.ndarray, denom: float) -> None:
         """Add every deferred round base at ``summed_weight / denom``,

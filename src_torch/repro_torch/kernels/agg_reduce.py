@@ -19,7 +19,10 @@ fold; each CUDA source carries its note on what bounds it and how:
   Gram matrix of the stack centred on row 0.
 - :func:`scatter_wsum` (``csrc/scatter_wsum.cu``, replaces ``:396``, which
   is an XLA graph plus a host scatter rather than a ``pallas_call``):
-  ``acc[dest] += w * dequant(vals)`` in place, the 0xF5 sparse fold.
+  ``acc[dest] += w * dequant(vals)`` in place, the 0xF5 sparse fold.  Its
+  fold stages each arrival once per card through a reused page-locked
+  buffer (:class:`PinnedStage`), and the wrapper checks an index on the
+  card.
 - :func:`decode_rows` (``csrc/decode_rows.cu``): the wire decode alone,
   a payload stack into rows of an fp64 stack, so that a round whose
   clients differ in codec or base reaches ``sort_reduce`` and ``gram`` as
@@ -102,6 +105,56 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A tensor as a host numpy array (waits for the device)."""
     return t.detach().cpu().numpy()
+
+
+class PinnedStage:
+    """A page-locked host buffer, reused, through which 1-D host arrays go
+    to a card.  :meth:`to_device` writes the arrays into it chunk by chunk
+    and sends each chunk (``non_blocking``) as soon as it is written, so
+    the host copy of one chunk overlaps the transfer of the last.  The
+    buffer is written again only after the last transfer out of it has
+    ended."""
+
+    #: bytes a chunk
+    CHUNK = 1 << 24
+    #: each array starts on a 16-byte boundary of the buffer
+    ALIGN = 16
+
+    def __init__(self):
+        self._buf: Optional[torch.Tensor] = None
+        self._sent: Optional[torch.cuda.Event] = None
+
+    def to_device(self, arrays: Sequence[Optional[np.ndarray]],
+                  device) -> list:
+        """Each array as a tensor on ``device`` (None stays None), views of
+        one device buffer; the copies run on ``device``'s current stream."""
+        host = [None if a is None else _host_tensor(a) for a in arrays]
+        offs, total = [], 0
+        for t in host:
+            offs.append(total)
+            if t is not None:
+                nb = t.numel() * t.element_size()
+                total += -(-nb // self.ALIGN) * self.ALIGN
+        if self._sent is not None:
+            self._sent.synchronize()
+        if self._buf is None or self._buf.numel() < total:
+            self._buf = torch.empty(max(total, 1), dtype=torch.uint8,
+                                    pin_memory=True)
+        with torch.cuda.device(device):
+            out = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
+            for t, off in zip(host, offs):
+                raw = torch.empty(0, dtype=torch.uint8) if t is None \
+                    else t.view(torch.uint8)
+                for c in range(0, raw.numel(), self.CHUNK):
+                    e = min(c + self.CHUNK, raw.numel())
+                    pin = self._buf[off + c:off + e]
+                    pin.copy_(raw[c:e])
+                    out[off + c:off + e].copy_(pin, non_blocking=True)
+            self._sent = torch.cuda.Event()
+            self._sent.record(torch.cuda.current_stream(device))
+        return [None if t is None
+                else out[off:off + t.numel() * t.element_size()].view(t.dtype)
+                for t, off in zip(host, offs)]
 
 
 def stack_to_device(rows: Sequence[np.ndarray], device) -> torch.Tensor:
@@ -488,10 +541,12 @@ def scatter_wsum(acc: torch.Tensor, dest, vals: torch.Tensor, w: float, *,
     int8 with ``scales``, the fp32 scales of the whole packed value stream
     (value ``i`` uses ``scales[(pos0 + i) // qchunk]``), or (nnz,) fp32.
     ``vals``, ``scales`` and an index tensor may lie on the CPU while
-    ``acc`` lies on the card: they are checked there and copied to
-    ``acc``'s device.  Every destination is checked to lie inside ``acc``
-    before anything is launched (an index tensor already on the card costs
-    one synchronising min/max).  ``nnz = 0`` launches nothing.
+    ``acc`` lies on the card: they are copied to ``acc``'s device.  Every
+    destination is checked to lie inside ``acc`` before anything is
+    launched: an index tensor on ``acc``'s device (copied there first if it
+    is not) by one min/max there and one sync of its two scalars; a bad
+    index raises ``IndexError`` with ``acc`` untouched.  ``nnz = 0``
+    launches nothing.
     """
     if acc.dim() != 1 or acc.dtype != torch.float64 \
             or not acc.is_contiguous():
@@ -519,11 +574,6 @@ def scatter_wsum(acc: torch.Tensor, dest, vals: torch.Tensor, w: float, *,
                 or dest.numel() != nnz or not dest.is_contiguous():
             raise ValueError("dest must be a contiguous (nnz,) int64 "
                              "tensor")
-        if nnz:
-            lo, hi = (int(v) for v in torch.aminmax(dest))
-            if lo < 0 or hi >= acc.numel():
-                raise IndexError(f"dest indices [{lo}, {hi}] outside acc "
-                                 f"of {acc.numel()}")
         d0 = 0
     else:
         d0 = _slice_start(dest, nnz)
@@ -533,9 +583,15 @@ def scatter_wsum(acc: torch.Tensor, dest, vals: torch.Tensor, w: float, *,
     if nnz == 0:
         return
     dev = acc.device
+    index = None
+    if isinstance(dest, torch.Tensor):
+        index = dest.to(dev)
+        lo, hi = torch.stack(torch.aminmax(index)).tolist()
+        if lo < 0 or hi >= acc.numel():
+            raise IndexError(f"dest indices [{lo}, {hi}] outside acc "
+                             f"of {acc.numel()}")
     vals = vals.to(dev)
     scales = None if scales is None else scales.to(dev)
-    index = dest.to(dev) if isinstance(dest, torch.Tensor) else None
     if not _on_cuda(dev, "scatter_wsum"):
         return scatter_wsum_plain(acc, d0 if index is None else index, vals,
                                   w, scales=scales, qchunk=qchunk, pos0=pos0)
@@ -562,7 +618,8 @@ _SIGNATURES = {
     "decode_rows": {"repro_decode_rows": (
         [_I, _P, _P, _LL, _LL, _P, _P, _LL, _LL, _P], _I)},
     "scatter_wsum": {"repro_scatter_wsum": (
-        [_P, _P, _LL, _P, _I, _P, _LL, _LL, ctypes.c_double, _LL, _P], _I)},
+        [_P, _P, _LL, _P, _I, _P, _LL, _LL, ctypes.c_double, _LL, _P], _I),
+        "repro_scatter_floor": ([_P, _P, ctypes.c_double, _LL, _P], _I)},
 }
 
 

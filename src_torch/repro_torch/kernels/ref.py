@@ -1,6 +1,5 @@
 """Plain-torch oracles over whole matrices (port of ``repro/kernels/ref.py``:
-the attention and SecAgg oracles; the RG-LRU scan's reference is the
-eager scan of ``models/recurrent.py``)."""
+the attention, SecAgg and RG-LRU scan oracles)."""
 from __future__ import annotations
 
 import torch
@@ -50,3 +49,18 @@ def secagg_mask_ref(x: torch.Tensor, masks: torch.Tensor, weight: float,
     q = q.clamp(-(2.0 ** 31), 2.0 ** 31 - 1).to(torch.int64)
     total = masks.to(torch.int64).sum(0) if masks.numel() else 0
     return ((q + total + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """h_t = a_t * h_{t-1} + b_t.  a, b: (B, S, W) fp32; h0: (B, W).
+
+    Returns ``(ys, h_S)``: every step's state (B, S, W) and the last one
+    (B, W), one step at a time in fp32 with the multiply and the add
+    rounded apart, the arithmetic of ``kernels/rglru_scan.py``'s
+    ``rglru_scan_plain``."""
+    ys = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    h = h0.to(torch.float32)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        ys[:, t] = h
+    return ys, h

@@ -21,7 +21,21 @@ main paths' shapes:
 
 - ``rglru_scan``: B 4, S 4096, W 2560 fp32 (RecurrentGemma-2B's prefill);
 - ``decode_rows``: 16 x 50M fp32, and 16 x 50M q8 deltas (int8, a scale
-  per 1024, an fp64 base) into a (16, 50M) fp64 stack.
+  per 1024, an fp64 base) into a (16, 50M) fp64 stack;
+- ``scatter_wsum``: one site's 0xF5 frame in the federated LLM of
+  ``chip_smoke.py`` (danube at 4 layers, 441,735,680 parameters, TopK at
+  5%: 22,086,784 int8 values, a scale per 1024, at sorted unique indices
+  into an fp64 accumulator of that size).  The indices are the port's
+  TopK (``fl.flat.topk_indices``, as the 0xF5 encoder takes them) over a
+  seeded normal tensor, since a real frame needs a training run.  Beside
+  the libraries it times their floors (``floor_<variant>``; the parent's
+  library has none), ``repro_scatter_floor``: the same read-modify-write
+  of ``acc[idx[i]]`` at the same indices with a constant addend, and no
+  values, scales or scale index.  Then the frame's three arrays' ways to
+  the card, in turns (host clock, each ending in a sync): a pageable
+  ``.to``, the fold's reused page-locked buffer
+  (``agg_reduce.PinnedStage``), and the frame's own pages registered
+  with ``cudaHostRegister``.
 
 It prints the card's name and power limit, one JSON line per library
 with its registers and spills (``ptxas -v``), and one JSON line per
@@ -40,6 +54,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -63,6 +78,20 @@ VARIANTS = {
         "stages12": [("kStages = 6;", "kStages = 12;")],
         "steps16_stages12": [("kSteps = 32;", "kSteps = 16;"),
                              ("kStages = 6;", "kStages = 12;")],
+    },
+    "scatter_wsum": {
+        # more positions a lane, all its acc loads in flight at once
+        "per2": [("kPer = 1;", "kPer = 2;")],
+        "per4": [("kPer = 1;", "kPer = 4;")],
+        "per16": [("kPer = 1;", "kPer = 16;"),
+                  ("kWarps = 8;", "kWarps = 4;")],
+        # 128-thread CTAs
+        "warps4": [("kWarps = 8;", "kWarps = 4;")],
+        # acc loads through L1 as well; acc stores evict-first
+        "acc_l1": [("old[k] = __ldcg(a.acc + d[k]);",
+                    "old[k] = a.acc[d[k]];")],
+        "store_cs": [("if (at(k) < n) a.acc[d[k]] = old[k];",
+                      "if (at(k) < n) __stcs(a.acc + d[k], old[k]);")],
     },
     "decode_rows": {
         # write-back stores (not evict-first)
@@ -159,6 +188,152 @@ def decode_call(lib):
         if err:
             raise RuntimeError(f"decode_rows launch: CUDA error {err}")
     return call
+
+
+def scatter_call(lib):
+    fn = lib.repro_scatter_wsum
+    argtypes, restype = A._SIGNATURES["scatter_wsum"]["repro_scatter_wsum"]
+    fn.restype, fn.argtypes = restype, argtypes
+
+    def call(acc, idx, vals, scales, w):
+        err = fn(acc.data_ptr(), idx.data_ptr(), 0, vals.data_ptr(), 1,
+                 scales.data_ptr(), A.DEFAULT_QCHUNK, 0, w, vals.numel(),
+                 _stream())
+        if err:
+            raise RuntimeError(f"scatter_wsum launch: CUDA error {err}")
+    return call
+
+
+def floor_call(lib):
+    fn = lib.repro_scatter_floor
+    argtypes, restype = A._SIGNATURES["scatter_wsum"]["repro_scatter_floor"]
+    fn.restype, fn.argtypes = restype, argtypes
+
+    def call(acc, idx, add):
+        err = fn(acc.data_ptr(), idx.data_ptr(), add, idx.numel(), _stream())
+        if err:
+            raise RuntimeError(f"scatter_floor launch: CUDA error {err}")
+    return call
+
+
+def federated_frame(seed: int = 21):
+    """(n, indices, int8 values, fp32 scales) of one site's 0xF5 frame at
+    the federated LLM's span, host numpy arrays: the TopK at
+    ``chip_smoke.FED_FRAC`` of a seeded normal tensor of the model's
+    size."""
+    from repro_torch.fl.flat import topk_indices
+    from repro_torch.models import build_model
+
+    n = build_model(CS._fed_cfg()).param_count()
+    k = max(1, int(np.ceil(CS.FED_FRAC * n)))
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n, dtype=np.float32)
+    np.abs(x, out=x)
+    idx = topk_indices(x, k)
+    del x
+    vals = rng.integers(-127, 128, k, dtype=np.int8)
+    scales = rng.uniform(1e-4, 1e-2, -(-k // A.DEFAULT_QCHUNK)) \
+        .astype(np.float32)
+    return n, idx, vals, scales
+
+
+def _staging(frame_arrays, rounds: int) -> dict:
+    """{way: [ms, one per turn]}: the frame's arrays to the card by a
+    pageable copy, the fold's page-locked buffer, and registered pages."""
+    cudart = torch.cuda.cudart()
+    stage = A.PinnedStage()
+    dev = torch.device("cuda")
+
+    def pageable():
+        return [A.to_device(a, dev) for a in frame_arrays]
+
+    def pinned():
+        return stage.to_device(frame_arrays, dev)
+
+    def registered():
+        host = [A._host_tensor(a) for a in frame_arrays]
+        done = []
+        try:
+            for t in host:
+                err = int(cudart.cudaHostRegister(
+                    t.data_ptr(), t.numel() * t.element_size(), 0))
+                if err != 0:
+                    raise RuntimeError(f"cudaHostRegister: error {err}")
+                done.append(t)
+            out = [t.to(dev, non_blocking=True) for t in host]
+            torch.cuda.synchronize()
+        finally:
+            for t in done:
+                cudart.cudaHostUnregister(t.data_ptr())
+        return out
+
+    ways = {"pageable": pageable, "pinned_stage": pinned,
+            "registered": registered}
+    want = [torch.from_numpy(np.ascontiguousarray(a)) for a in frame_arrays]
+    times = {w: [] for w in ways}
+    for _ in range(rounds):
+        for order in (list(ways), list(ways)[::-1]):
+            for w in order:
+                try:
+                    ms, out = CS.sync_ms(ways[w])
+                except RuntimeError as e:
+                    times[w] = str(e)
+                    continue
+                if isinstance(times[w], list):
+                    if not all(torch.equal(o.cpu(), t)
+                               for o, t in zip(out, want)):
+                        raise AssertionError(f"staging {w}: bytes differ")
+                    times[w].append(ms)
+                del out
+    return times
+
+
+def ab_scatter(libs: dict, card: str, rounds: int):
+    n, idx_np, vals_np, scales_np = federated_frame()
+    dev = torch.device("cuda")
+    idx, vals, scales = (A.to_device(a, dev)
+                         for a in (idx_np, vals_np, scales_np))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(442)
+    acc0 = torch.randn(n, dtype=torch.float64, device=dev, generator=gen)
+    w = 13.0
+    want = acc0.clone()
+    A.scatter_wsum_plain(want, idx, vals, w, scales=scales)
+    acc = torch.empty_like(acc0)
+    fns = {}
+    for var, (lib, _) in libs.items():
+        call = scatter_call(lib)
+        acc.copy_(acc0)
+        call(acc, idx, vals, scales, w)
+        torch.cuda.synchronize()
+        if not _checked("scatter_wsum", var, torch.equal(
+                acc.view(torch.int64), want.view(torch.int64))):
+            continue
+        fns[var] = (lambda c: lambda: c(acc, idx, vals, scales, w))(call)
+    del want, acc0
+    for var, (lib, _) in libs.items():
+        if var != "parent" and var in fns:
+            fns[f"floor_{var}"] = (lambda f: lambda: f(acc, idx, 1.0))(
+                floor_call(lib))
+    times = in_turns(fns, rounds, reps=20)
+    bound_ms, bound_by = CS.scatter_bound(idx.numel(), False, True,
+                                          scales.numel())
+    del acc, idx, vals, scales
+    torch.cuda.empty_cache()
+    staging = _staging((vals_np, scales_np, idx_np), rounds)
+    return {"kernel": "scatter_wsum", "card": card,
+            "shape": f"{idx_np.size} int8 values at unique TopK indices "
+                     f"into {n} fp64",
+            "bound_ms": bound_ms,
+            "bound_by": bound_by, "bitwise": True,
+            "median_ms": {k: statistics.median(v) for k, v in times.items()},
+            "ms": times,
+            "staging_ms": staging,
+            "staging_median_ms": {k: statistics.median(v)
+                                  for k, v in staging.items()
+                                  if isinstance(v, list) and v},
+            "staged_mb": (idx_np.nbytes + vals_np.nbytes
+                          + scales_np.nbytes) / 1e6}
 
 
 def in_turns(fns: dict, rounds: int, reps: int) -> dict:
@@ -287,6 +462,8 @@ def main(argv=None) -> int:
         results.append(ab_rglru(built["rglru_scan"], card, args.rounds))
     if "decode_rows" in built:
         results += ab_decode(built["decode_rows"], card, args.rounds)
+    if "scatter_wsum" in built:
+        results.append(ab_scatter(built["scatter_wsum"], card, args.rounds))
     for line in results:
         print(json.dumps(line), flush=True)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
