@@ -34,8 +34,14 @@ RecurrentGemma-2B at full width and depth
 serving 4 requests of 4096 prompt tokens and 32 new tokens with the
 ``rglru_scan`` kernel in its 18 RG-LRU layers and the flash kernel at
 head dim 256 in its 8 local-attention layers, against the eager paths
-(slice 4); and slice 5's server folds: the sharded fold at the
-benchmark's 50M x 16 geometry over 8 shard ranges (fp64 and fp32 tiles),
+(slice 4); the dense, VLM, MoE and MLA families at full width (slice 12:
+Granite-MoE-1B-A400M and InternVL2-1B at full depth, DeepSeek-V2-236B
+cut to its dense first layer and one MoE layer of 160 experts, Qwen3-32B,
+Yi-34B and Granite-34B cut to 2 layers), each served with flash and
+eager attention, the flash kernel held to its twin at each family's head
+group and timed at head dims 64 and 128; and slice 5's server folds: the
+sharded fold at the benchmark's 50M x 16 geometry over 8 shard ranges
+(fp64 and fp32 tiles),
 the 0xF5 sparse fold of 100M-parameter deltas from 8 clients through
 ``scatter_wsum`` (COO and adapter ranges), the SecAgg quickstart
 natively and in FLARE and a DP + TopK round, and ``secagg_mask`` through
@@ -1119,6 +1125,33 @@ RG_BATCH, RG_PROMPT, RG_NEW = 4, 4096, 32
 FLASH_SERVE_RG = dict(B=RG_BATCH, S=RG_PROMPT, H=10, KV=1, hd=256,
                       window=2048, causal=True)
 RGLRU_SERVE = dict(B=RG_BATCH, S=RG_PROMPT, W=2560)
+#: the (H, KV) head groups of the dense, VLM and MoE families
+FAMILY_GROUPS = ((16, 8), (14, 2), (56, 8), (64, 8), (48, 1))
+#: serve_families: arch -> (layers run, batch, prompt, new tokens), the
+#: depth cut only where one card cannot hold the model (a MoE period is one
+#: layer: DeepSeek-V2 keeps its dense first layer and one MoE layer)
+FAMILIES = {
+    "granite-moe-1b-a400m": (24, 4, 4096, 16),
+    "internvl2-1b": (24, 4, 2048, 16),
+    "deepseek-v2-236b": (2, 1, 2048, 16),
+    "qwen3-32b": (2, 1, 2048, 8),
+    "yi-34b": (2, 1, 2048, 8),
+    "granite-34b": (2, 1, 2048, 8),
+}
+#: the families' prefill attention shapes (InternVL2's sequence holds its
+#: 256 patch embeddings before the prompt); DeepSeek-V2's MLA takes the
+#: eager path, as the reference's does
+FLASH_FAMILIES = {
+    "granite-moe-1b-a400m": dict(B=4, S=4096, H=16, KV=8, hd=64, window=0,
+                                 causal=True),
+    "internvl2-1b": dict(B=4, S=256 + 2048, H=14, KV=2, hd=64, window=0,
+                         causal=True),
+    "qwen3-32b": dict(B=1, S=2048, H=64, KV=8, hd=128, window=0,
+                      causal=True),
+    "yi-34b": dict(B=1, S=2048, H=56, KV=8, hd=128, window=0, causal=True),
+    "granite-34b": dict(B=1, S=2048, H=48, KV=1, hd=128, window=0,
+                        causal=True),
+}
 #: secagg_mask's cases: up to the benchmark's N (benchmarks/run.py:259-263)
 SECAGG_N = (1, 7, 4097, 1 << 16)
 #: secagg_mask's second timed shape: one client of a 16-client round of
@@ -1164,7 +1197,21 @@ def _flash_cases():
         for H, KV in ((10, 1), (4, 1), (8, 2)):
             for window in (0, 16, 2048):
                 grid.append((B, S, H, KV, 256, window, True))
-    for f in (FLASH_SERVE, FLASH_SERVE_RG):
+    # the query-head groups of the dense, VLM and MoE families: g = 2
+    # (granite-moe 16/8), 7 (internvl2 14/2, yi 56/8), 8 (qwen3 64/8) and
+    # 48 (granite-34b, MQA), each at hd 64 and 128
+    for H, KV in FAMILY_GROUPS:
+        for hd in (64, 128):
+            for S in (64, 509):
+                for window in (0, 16):
+                    for causal in (True, False):
+                        grid.append((1, S, H, KV, hd, window, causal))
+    # head dim 16: Yi-34B's smoke variant (8/2 heads of 16), the serving
+    # launcher's default
+    for S, window in ((64, 0), (509, 0), (509, 16), (200, 37)):
+        for causal in (True, False):
+            grid.append((2, S, 8, 2, 16, window, causal))
+    for f in (FLASH_SERVE, FLASH_SERVE_RG) + tuple(FLASH_FAMILIES.values()):
         grid.append((f["B"], f["S"], f["H"], f["KV"], f["hd"], f["window"],
                      f["causal"]))
     # the tensor-core kernel's tile edges (64 keys, 32 at hd 256; 64-row q
@@ -1378,7 +1425,9 @@ def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
     S = f["S"]
     qpos = torch.arange(S, device=dev)[:, None]
     kpos = torch.arange(S, device=dev)[None, :]
-    mask = (kpos <= qpos) & (kpos > qpos - f["window"])
+    mask = kpos <= qpos
+    if f["window"]:
+        mask &= kpos > qpos - f["window"]
 
     def sdpa(q, k, v):
         return lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1718,6 +1767,188 @@ def phase_serve_recurrentgemma(dev, card: str):
     del params, runs, flash, eager, f32
     torch.cuda.empty_cache()
     return fl["prefill"]
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: the dense, VLM, MoE and MLA families at full width (slice 12)
+# ---------------------------------------------------------------------------
+def _routing_flips(sets: dict) -> list:
+    """Per MoE layer, the share of prompt tokens whose top-k expert set
+    differs between the flash and the eager prefill (``sets[impl]``: one
+    (tokens, k) tensor of sorted expert indices per MoE layer, in order)."""
+    flash, eager = sets["flash"], sets["eager"]
+    check(len(flash) == len(eager),
+          f"serve_families: {len(flash)} MoE layers routed with flash, "
+          f"{len(eager)} with eager")
+    return [float((f != e).any(-1).float().mean())
+            for f, e in zip(flash, eager)]
+
+
+def phase_serve_families(dev, card: str):
+    """Slice 12's main path: each of the six dense, VLM, MoE and MLA
+    architectures at full width, random weights from seed 0, through
+    ``launch.serve.serve`` with impl="flash", then the same weights and
+    prompt with impl="eager" (FAMILIES: depth cut only where one card
+    cannot hold the model).  InternVL2-1B's requests carry its 256 patch
+    embeddings (seeded normals).  Flash launches are read after each
+    prefill and after its decode loop (after one uncounted warm-up serve
+    per path at the same shapes): every attention layer's prefill
+    launches the kernel once on the tensor-core route (DeepSeek-V2's MLA
+    none, as the reference pins it to XLA), decode none.  The last-position
+    prefill logits of flash and eager agree within SERVE_TOL; for the MoE
+    archs each layer's top-k expert sets over every prompt token are
+    compared between the two runs, and a logit gap past SERVE_TOL fails
+    only where no routing differs (a bf16 difference upstream can flip a
+    routing, and a flip moves the logits)."""
+    from repro_torch.config import MLA, get_model_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import build_model
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.models.base import iter_leaves
+
+    make_prefill = serve_mod.make_prefill_step
+    top_k = mlp_mod.top_k
+    launches = lambda: dict(FA.LAUNCHES)  # noqa: E731
+    state = {"prefill": False, "sets": [], "after_prefill": None}
+
+    def counting_prefill(model, **kw):
+        step = make_prefill(model, **kw)
+
+        def run(params, batch):
+            state["prefill"] = True
+            try:
+                out = step(params, batch)
+            finally:
+                state["prefill"] = False
+            state["after_prefill"] = launches()
+            return out
+
+        return run
+
+    def recording_top_k(probs, k):
+        vals, idx = top_k(probs, k)
+        if state["prefill"]:
+            state["sets"].append(
+                torch.sort(idx.reshape(-1, k), dim=-1).values.cpu())
+        return vals, idx
+
+    out = {}
+    serve_mod.make_prefill_step = counting_prefill
+    mlp_mod.top_k = recording_top_k
+    try:
+        for arch, (layers, batch, prompt, new) in FAMILIES.items():
+            full = get_model_config(arch)
+            cfg = full.replace(num_layers=layers)
+            n_attn = sum(k != MLA for k in cfg.layer_kinds)
+            moe_layers = (cfg.num_layers - cfg.moe.first_dense_layers
+                          if cfg.moe.enabled else 0)
+            gc_collect()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = build_model(cfg).init(0, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            n_params = sum(t.numel() for _, t in iter_leaves(params))
+            rng = np.random.default_rng(0)
+            tokens = rng.integers(0, cfg.vocab_size, (batch, prompt),
+                                  dtype=np.int64)
+            extra = None
+            if cfg.frontend == "vision":
+                extra = torch.from_numpy(rng.normal(size=(
+                    batch, cfg.num_prefix_tokens, cfg.d_model)).astype(
+                        np.float32)).to(dev)
+            # warm-up at the timed shapes (cuBLAS's and the allocator's
+            # first calls), uncounted: the counts are zeroed below
+            for impl in ("flash", "eager"):
+                serve_mod.serve(cfg, params, tokens, new_tokens=2, impl=impl,
+                                device=dev, extra_embeds=extra)
+            runs, peaks, counts, sets = {}, {}, {}, {}
+            for impl in ("flash", "eager"):
+                for key in FA.LAUNCHES:
+                    FA.LAUNCHES[key] = 0
+                state["sets"] = []
+                torch.cuda.reset_peak_memory_stats()
+                runs[impl] = serve_mod.serve(cfg, params, tokens,
+                                             new_tokens=new, impl=impl,
+                                             device=dev, extra_embeds=extra)
+                peaks[impl] = torch.cuda.max_memory_allocated()
+                pf, total = state["after_prefill"], launches()
+                counts[impl] = {
+                    "prefill": {r: pf[f"flash_attention.{r}"]
+                                for r in FA.ROUTES.values()},
+                    "decode": {r: total[f"flash_attention.{r}"]
+                               - pf[f"flash_attention.{r}"]
+                               for r in FA.ROUTES.values()}}
+                sets[impl] = state["sets"]
+            fl, ea = counts["flash"], counts["eager"]
+            # the bf16 prefill: every attention layer on the tensor cores
+            check(fl["prefill"] == {"tensor_core": n_attn, "cuda_core": 0},
+                  f"serve_families {arch}: flash prefill launches "
+                  f"{fl['prefill']}, want {n_attn} on the tensor cores")
+            check(all(v == 0 for v in fl["decode"].values()),
+                  f"serve_families {arch}: decode launched {fl['decode']}")
+            check(all(v == 0 for part in ea.values() for v in part.values()),
+                  f"serve_families {arch}: impl='eager' launched {ea}")
+            n_prefill = batch * (prompt + (cfg.num_prefix_tokens
+                                           if extra is not None else 0))
+            flips = None
+            if moe_layers:
+                check(all(len(v) == moe_layers for v in sets.values())
+                      and all(t.shape[0] == n_prefill
+                              for v in sets.values() for t in v),
+                      f"serve_families {arch}: routing recorded for "
+                      f"{[len(v) for v in sets.values()]} MoE layers, want "
+                      f"{moe_layers} of {n_prefill} tokens")
+                flips = _routing_flips(sets)
+            for name, r in runs.items():
+                check(r.finite, f"serve_families {arch} {name}: non-finite "
+                      f"logits")
+                check(tuple(r.ids.shape) == (batch, new),
+                      f"serve_families {arch} {name}: ids "
+                      f"{tuple(r.ids.shape)}")
+            V = cfg.vocab_size
+            lf = runs["flash"].prefill_logits[:, :V]
+            le = runs["eager"].prefill_logits[:, :V]
+            err, exc = _excess(lf, le, SERVE_TOL)
+            flipped = bool(flips) and max(flips) > 0
+            check(exc <= 1.0 or flipped,
+                  f"serve_families {arch}: prefill logits flash vs eager "
+                  f"|d| = {err} with the same routing")
+            row = dict(
+                card=card, arch=arch, params=n_params, layers=layers,
+                full_layers=full.num_layers,
+                depth_cut=layers < full.num_layers,
+                d_model=cfg.d_model, heads=cfg.num_heads,
+                kv_heads=cfg.num_kv_heads,
+                head_dim=(cfg.resolved_head_dim if n_attn else None),
+                attention_layers=n_attn, moe_layers=moe_layers,
+                batch=batch, prompt=prompt,
+                prefix=(cfg.num_prefix_tokens if extra is not None else 0),
+                new_tokens=new, init_s=init_s,
+                flash_launches_by_route=fl,
+                prefill_ms={k: r.prefill_s * 1e3 for k, r in runs.items()},
+                decode_ms_per_token={k: r.decode_s * 1e3 / (new - 1)
+                                     for k, r in runs.items()},
+                peak_mem_gb={k: v / 1e9 for k, v in peaks.items()},
+                finite=all(r.finite for r in runs.values()),
+                logits_max_abs_diff=err, logits_tol=SERVE_TOL,
+                logits_excess=exc,
+                logits_max_abs=float(le.abs().max()),
+                routing_flip_share=flips,
+                routing_flips_explain_gap=(exc > 1.0 and flipped),
+                ids_agree=float((runs["flash"].ids
+                                 == runs["eager"].ids).float().mean()))
+            emit("serve_families", **row)
+            out[arch] = row
+            del params, runs, extra, sets
+            state["sets"] = []
+    finally:
+        serve_mod.make_prefill_step = make_prefill
+        mlp_mod.top_k = top_k
+    gc_collect()
+    return {arch: r["flash_launches_by_route"]["prefill"]["tensor_core"]
+            for arch, r in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -3207,7 +3438,14 @@ def main() -> int:
     flash_launches = phase_serve(dev, card)
     flash = phase_flash_timing(dev, card)
     rg_launches = phase_serve_recurrentgemma(dev, card)
+    fam_launches = phase_serve_families(dev, card)
     flash_rg = phase_flash_timing(dev, card, FLASH_SERVE_RG, seed=4096)
+    # the families' two head dims: granite-moe's prefill (hd 64) and
+    # qwen3's (hd 128)
+    flash_hd64 = phase_flash_timing(
+        dev, card, FLASH_FAMILIES["granite-moe-1b-a400m"], seed=64)
+    flash_hd128 = phase_flash_timing(dev, card, FLASH_FAMILIES["qwen3-32b"],
+                                     seed=128)
     rglru = phase_rglru_timing(dev, card)
     f32_tile = phase_shard_fold(dev, card)
     scatter = phase_sparse_fold(dev, card)
@@ -3251,24 +3489,31 @@ def main() -> int:
                       "numpy engine's per-client decode of a mixed round, "
                       "src/repro/fl/agg_kernels.py:819 _rowstack)",
              launches=decode_launches),
-        # launches: the bf16 prefills of both serving paths (H2O-Danube, hd
-        # 80; RecurrentGemma, hd 256), all on the tensor-core route; the
-        # times at danube's shape, and at RecurrentGemma's under "hd256";
-        # per route under "routes" (fp32: the CUDA-core kernel)
+        # launches: the bf16 prefills of the serving paths (H2O-Danube, hd
+        # 80; RecurrentGemma, hd 256; the families, hd 64 and 128, per
+        # arch), all on the tensor-core route; the times at danube's shape,
+        # at RecurrentGemma's under "hd256", at granite-moe's and qwen3's
+        # under "hd64" and "hd128"; per route under "routes" (fp32: the
+        # CUDA-core kernel)
         dict(name="flash_attention", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:94",
-             launches=flash_launches + rg_launches["flash_attention"],
+             launches=flash_launches + rg_launches["flash_attention"]
+             + sum(fam_launches.values()),
              launches_by_path={
                  "serve": flash_launches,
-                 "serve_recurrentgemma": rg_launches["flash_attention"]},
+                 "serve_recurrentgemma": rg_launches["flash_attention"],
+                 "serve_families": fam_launches},
              launches_by_route={"tensor_core": flash_launches
-                                + rg_launches["flash_attention.tensor_core"],
+                                + rg_launches["flash_attention.tensor_core"]
+                                + sum(fam_launches.values()),
                                 "cuda_core": 0},
-             hd256=flash_rg,
+             hd256=flash_rg, hd64=flash_hd64, hd128=flash_hd128,
              max_abs_diff_by_route=flash_diff,
              **dict(flash, max_abs_diff=max(*flash_diff.values(),
                                             flash["max_abs_diff"],
-                                            flash_rg["max_abs_diff"]))),
+                                            flash_rg["max_abs_diff"],
+                                            flash_hd64["max_abs_diff"],
+                                            flash_hd128["max_abs_diff"]))),
         dict(name="rglru_scan", source=src + "rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan.py:51",
              launches=rg_launches["rglru_scan"], max_abs_diff=rglru_diff,
@@ -3295,7 +3540,8 @@ def main() -> int:
             "max_abs_diff", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "share_of_bound", "gb_per_s", "trim_sum", "shape",
             "launches_by_path", "launches_by_route",
-            "routes", "max_abs_diff_by_route", "hd256", "over_64_clients",
+            "routes", "max_abs_diff_by_route", "hd256", "hd64", "hd128",
+            "over_64_clients",
             "q8_delta", "eager_scan_ms", "f32_tile", "floor_ms",
             "share_of_floor", "fold_call_ms", "wrapper_ms",
             "wrapper_split_ms", "at_50M_P15", "sparse_fold")

@@ -2,10 +2,17 @@
 
 Importing this package populates ``repro_torch.config.ARCH_REGISTRY`` /
 ``SMOKE_REGISTRY``.  Only the families the port runs are registered; the
-others come with their families (ROADMAP queue 1, item 11).
+xLSTM (``xlstm-350m``) and encoder-decoder (``whisper-medium``) families
+come with their slice (ROADMAP queue 1, item 11).
 """
 from repro_torch.configs import (  # noqa: F401
+    deepseek_v2_236b,
     flower_quickstart,
+    granite_34b,
+    granite_moe_1b_a400m,
     h2o_danube_1_8b,
+    internvl2_1b,
+    qwen3_32b,
     recurrentgemma_2b,
+    yi_34b,
 )

@@ -55,7 +55,8 @@
 // only rounding the twin does not have.  The row sum l is kept per thread
 // and summed across the quad once, at the end.  Masks are evaluated only on
 // the tiles that straddle an edge of the band (causal diagonal, window edge,
-// end of the sequence).  Head dims 32, 64, 80, 128 and 256 are instantiated.
+// end of the sequence).  Head dims 16, 32, 64, 80, 128 and 256 are
+// instantiated.
 //
 // fp32 design (flash_fwd_kernel, unchanged since it was the only route):
 // one CTA of 256 threads per (q block, q head, batch).  kLanes threads own a
@@ -619,6 +620,8 @@ Launch pick(int dtype) {
 // the launcher of (dtype, head dim), or null
 Launch launcher(int dtype, int hd) {
   switch (hd) {
+    case 16:
+      return pick<16>(dtype);
     case 32:
       return pick<32>(dtype);
     case 64:
@@ -640,6 +643,8 @@ Launch launcher(int dtype, int hd) {
 // a head dim it is not instantiated for).
 extern "C" int repro_flash_tc_smem_bytes(int hd) {
   switch (hd) {
+    case 16:
+      return tc::smem_bytes(16);
     case 32:
       return tc::smem_bytes(32);
     case 64:

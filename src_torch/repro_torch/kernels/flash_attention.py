@@ -35,8 +35,9 @@ from repro_torch.kernels.ref import NEG_INF
 
 #: head dims the kernel is instantiated for: 80 (H2O-Danube), 256
 #: (RecurrentGemma's local attention), 64 and 128 (the repo's other
-#: attention configs) and 32 (their smoke variants)
-HEAD_DIMS = (32, 64, 80, 128, 256)
+#: attention configs) and 16 and 32 (their smoke variants: 16 is
+#: Yi-34B's, the serving launcher's default)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 #: the kernel each input dtype runs on the card: bf16 on the tensor cores,
 #: fp32 on the CUDA cores (no bf16 or TF32 product holds fp32's tolerance)

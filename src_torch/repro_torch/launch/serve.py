@@ -3,10 +3,13 @@
 
 A request batch is prefilled once, then decoded token by token with the
 KV cache.  Prefill attention runs through the hand-written flash kernel
-(``impl="flash"``).  ``--arch`` selects a registered architecture, in its
-smoke variant, as the reference does; :func:`serve` runs any config, the
-full-width one included.  ``--device`` picks the device (default: the CUDA
-card; ``--device cpu`` runs the kernels' plain twins).
+(``impl="flash"``; an MLA layer always takes the eager contraction, as the
+reference's does).  A vision model's requests carry
+``cfg.num_prefix_tokens`` precomputed patch embeddings (``extra_embeds``),
+prepended to the prompt.  ``--arch`` selects a registered architecture,
+in its smoke variant, as the reference does; :func:`serve` runs any
+config, the full-width one included.  ``--device`` picks the device
+(default: the CUDA card; ``--device cpu`` runs the kernels' plain twins).
 
     PYTHONPATH=src_torch python -m repro_torch.launch.serve --device cpu
 """
@@ -40,20 +43,28 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve(cfg: ModelConfig, params, tokens, *, new_tokens: int,
-          impl: str = "flash", device: DeviceLike = None) -> ServeResult:
+          impl: str = "flash", device: DeviceLike = None,
+          extra_embeds=None) -> ServeResult:
     """Prefill the (B, S) prompt ``tokens`` once, then greedily decode
     ``new_tokens`` tokens (the first from the prefill's logits).  ``params``
-    lie on ``device`` (None: the card)."""
+    lie on ``device`` (None: the card).  ``extra_embeds`` (B, N, d), where
+    given, are prepended to the prompt (a vision model's patch
+    embeddings); the cache holds them too, N + S + new_tokens slots, so no
+    decode step overwrites a prompt slot."""
     dev = resolve_device(device)
     model = build_model(cfg)
-    tokens = torch.as_tensor(tokens, device=dev)
-    max_len = tokens.shape[1] + new_tokens
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    n_prefix = 0
+    if extra_embeds is not None:
+        batch["extra_embeds"] = torch.as_tensor(extra_embeds, device=dev)
+        n_prefix = batch["extra_embeds"].shape[1]
+    max_len = n_prefix + batch["tokens"].shape[1] + new_tokens
     prefill = make_prefill_step(model, max_len=max_len, impl=impl)
     decode = make_decode_step(model, impl=impl)
 
     _sync(dev)
     t0 = time.perf_counter()
-    last, cache = prefill(params, {"tokens": tokens})
+    last, cache = prefill(params, batch)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     prefill_logits = last
@@ -74,7 +85,7 @@ def serve(cfg: ModelConfig, params, tokens, *, new_tokens: int,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="h2o-danube-1.8b")
+    ap.add_argument("--arch", default="yi-34b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -89,8 +100,12 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     tokens = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
                           dtype=np.int64)
+    extra = None
+    if cfg.frontend == "vision":
+        extra = rng.normal(size=(args.batch, cfg.num_prefix_tokens,
+                                 cfg.d_model)).astype(np.float32)
     res = serve(cfg, params, tokens, new_tokens=args.new_tokens,
-                impl="flash", device=dev)
+                impl="flash", device=dev, extra_embeds=extra)
     toks = res.ids.cpu().numpy()
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"device={dev}")

@@ -1,6 +1,6 @@
-"""Attention blocks: full / GQA / MQA / sliding-window / local (port of
-``repro/models/attention.py``; Multi-head Latent Attention is ROADMAP
-queue 1, item 11).
+"""Attention blocks: full / GQA / MQA / sliding-window / local, and
+DeepSeek-V2 Multi-head Latent Attention (MLA) (port of
+``repro/models/attention.py``).
 
 Each block exposes
   specs(cfg)                         -> ParamSpec tree (one layer)
@@ -25,11 +25,9 @@ import torch
 
 from repro_torch.config import ATTN, LOCAL_ATTN, MLA, SWA, ModelConfig
 from repro_torch.models import attention_impl
-from repro_torch.models.base import ParamSpec, apply_rope
-from repro_torch.sharding import cast_weight
-
-_MLA_TODO = ("multi-head latent attention (kind 'mla') is not ported yet: "
-             "ROADMAP queue 1, item 11")
+from repro_torch.models.base import (ParamSpec, apply_norm, apply_rope,
+                                     norm_spec)
+from repro_torch.sharding import cast_weight, constrain_heads
 
 
 def specs(cfg: ModelConfig) -> Dict:
@@ -49,7 +47,7 @@ def specs(cfg: ModelConfig) -> Dict:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
                device: torch.device) -> Dict:
     if kind == MLA:
-        raise NotImplementedError(_MLA_TODO)
+        return mla_init_cache(cfg, batch, max_len, device)
     if kind in (SWA, LOCAL_ATTN) and cfg.window:
         max_len = min(max_len, cfg.window)
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -90,7 +88,8 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
           max_len: Optional[int] = None,
           ) -> Tuple[torch.Tensor, Optional[Dict]]:
     if kind == MLA:
-        raise NotImplementedError(_MLA_TODO)
+        return mla_apply(params, x, cfg, mode=mode, positions=positions,
+                         cache=cache, max_len=max_len)
     B, S, d = x.shape
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     window = cfg.window if kind in (SWA, LOCAL_ATTN) else 0
@@ -163,3 +162,147 @@ def _fill_cache_from_prefill(cfg, k, v, positions, kind,
         pos = torch.nn.functional.pad(pos, (0, pad), value=-1)
     return {"k": k.contiguous(), "v": v.contiguous(),
             "slot_pos": pos.contiguous()}
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434)
+# ---------------------------------------------------------------------------
+# Projections:
+#   c_q   = W_DQ x                (q_lora_rank)
+#   q     = W_UQ c_q              -> per head [q_nope (nope_dim), q_pe (rope_dim)]
+#   c_kv  = W_DKV x               (kv_lora_rank)      <- THE cached latent
+#   k_pe  = W_KR x                (rope_dim, shared across heads, rope'd)
+#   k     = [W_UK c_kv, k_pe] ; v = W_UV c_kv
+# Decode uses the absorbed form: score_h = q_nope_h^T W_UK_h c + q_pe_h^T k_pe
+# so only (c_kv, k_pe) is cached.
+def mla_specs(cfg: ModelConfig) -> Dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    nope, rope_d, vdim = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    return {
+        "wdq": ParamSpec((d, m.q_lora_rank), ("embed", "lora")),
+        "q_norm": norm_spec(cfg, m.q_lora_rank),
+        "wuq": ParamSpec((m.q_lora_rank, H, nope + rope_d),
+                         ("lora", "heads", "head_dim")),
+        "wdkv": ParamSpec((d, m.kv_lora_rank), ("embed", "lora")),
+        "kv_norm": norm_spec(cfg, m.kv_lora_rank),
+        "wuk": ParamSpec((m.kv_lora_rank, H, nope), ("lora", "heads", "head_dim")),
+        "wuv": ParamSpec((m.kv_lora_rank, H, vdim), ("lora", "heads", "head_dim")),
+        "wkr": ParamSpec((d, rope_d), ("embed", "head_dim")),
+        "wo": ParamSpec((H, vdim, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   device: torch.device) -> Dict:
+    m, dt = cfg.mla, cfg.compute_dtype
+    return {
+        "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dt,
+                           device=device),
+        "kpe": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dt,
+                           device=device),
+        "slot_pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                               device=device),
+    }
+
+
+def mla_scale(cfg: ModelConfig, dtype: torch.dtype,
+              device: Optional[torch.device] = None) -> torch.Tensor:
+    """The reference's MLA score scale, ``1.0 / jnp.sqrt(float32(nope +
+    rope)).astype(dtype)``: the square root rounded to ``dtype``, then the
+    quotient in ``dtype`` (a 0-d tensor)."""
+    m = cfg.mla
+    root = torch.tensor(math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim),
+                        dtype=torch.float32, device=device)
+    return 1.0 / root.to(dtype)
+
+
+def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+              positions: torch.Tensor, cache: Optional[Dict] = None,
+              max_len: Optional[int] = None,
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """MLA in the naive form for train and prefill, the absorbed form for
+    decode.
+
+    Train and prefill expand k and v per head and always take the eager
+    contraction, whatever ``impl`` the trunk was given: the reference pins
+    ``impl="xla"`` there (its q and k are nope + rope = 192 wide, its v
+    128), so no flash launch belongs to an MLA layer.  The scale is
+    :func:`mla_scale` in x's dtype; prefill multiplies q by it in x's
+    dtype, decode multiplies its fp32 scores by it widened to fp32.
+    Decode writes slot ``min(pos, cache_len - 1)``, as the reference does.
+    """
+    m = cfg.mla
+    B, S, d = x.shape
+    H = cfg.num_heads
+    nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
+    dt = x.dtype
+    scale = mla_scale(cfg, dt, x.device)
+
+    cq = apply_norm(params["q_norm"], x @ params["wdq"].to(dt), cfg)
+    q = _project(cq, params["wuq"].to(dt))
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+
+    ckv = apply_norm(params["kv_norm"], x @ params["wdkv"].to(dt), cfg)
+    kpe = x @ params["wkr"].to(dt)
+    kpe = apply_rope(kpe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+
+    if mode in ("train", "prefill"):
+        # naive (non-absorbed) form: expand k, v per head
+        k_nope = _project(ckv, params["wuk"].to(dt))
+        v = _project(ckv, params["wuv"].to(dt))
+        k = torch.cat([k_nope, kpe[:, :, None, :].expand(B, S, H, rope_d)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_pe], dim=-1) * scale
+        qq = constrain_heads(qq)
+        k = constrain_heads(k)
+        v = constrain_heads(v)
+        ctx = attention_impl.causal_attention(qq, k, v, window=0,
+                                              impl="eager")
+        new_cache = None
+        if mode == "prefill":
+            pos = positions.expand(B, S) if positions.dim() == 1 else positions
+            pos = pos.to(torch.int32)
+            ckv_c, kpe_c = ckv, kpe
+            if max_len and max_len > S:
+                pad = max_len - S
+                ckv_c = torch.nn.functional.pad(ckv_c, (0, 0, 0, pad))
+                kpe_c = torch.nn.functional.pad(kpe_c, (0, 0, 0, pad))
+                pos = torch.nn.functional.pad(pos, (0, pad), value=-1)
+            new_cache = {"ckv": ckv_c.contiguous(), "kpe": kpe_c.contiguous(),
+                         "slot_pos": pos.contiguous()}
+    elif mode == "decode":
+        assert cache is not None
+        pos = positions[:, 0] if positions.dim() == 2 else positions
+        cache_len = cache["ckv"].shape[1]
+        slot = torch.clamp(pos, max=cache_len - 1)
+        bidx = torch.arange(B, device=x.device)
+        ckv_c = cache["ckv"].clone()
+        kpe_c = cache["kpe"].clone()
+        sp = cache["slot_pos"].clone()
+        ckv_c[bidx, slot] = ckv[:, 0]
+        kpe_c[bidx, slot] = kpe[:, 0]
+        sp[bidx, slot] = pos.to(sp.dtype)
+        # absorbed decode: q'_h = W_UK_h^T q_nope_h  (B,H,rank)
+        q_abs = torch.einsum("bnh,rnh->bnr", q_nope[:, 0],
+                             params["wuk"].to(dt))
+        # fp32 products and sums, as preferred_element_type=float32
+        scores = (torch.einsum("bnr,bsr->bns", q_abs.float(), ckv_c.float())
+                  + torch.einsum("bnh,bsh->bns", q_pe[:, 0].float(),
+                                 kpe_c.float())) \
+            * scale.float()
+        mask = (sp >= 0) & (sp <= pos[:, None])           # (B, S)
+        scores = torch.where(mask[:, None, :], scores, -torch.inf)
+        w = torch.softmax(scores, dim=-1).to(dt)
+        # attend in latent space
+        ctx_lat = torch.einsum("bns,bsr->bnr", w, ckv_c)
+        ctx = torch.einsum("bnr,rnh->bnh", ctx_lat, params["wuv"].to(dt))
+        ctx = ctx[:, None]                                 # (B,1,H,vdim)
+        new_cache = {"ckv": ckv_c, "kpe": kpe_c, "slot_pos": sp}
+    else:
+        raise ValueError(mode)
+
+    vdim = ctx.shape[-1]
+    y = ctx.reshape(B * S, H * vdim) @ params["wo"].to(dt).reshape(H * vdim, d)
+    return y.view(B, S, d), new_cache

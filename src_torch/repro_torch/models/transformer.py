@@ -8,15 +8,17 @@ Composes the block library according to ``cfg.layer_kinds``:
   stacked tensors, so the parameter tree keeps the reference's keys and
   shapes (``scan_0/mix/wq`` is ``(n_periods, d, H, hd)``);
 - ``moe.first_dense_layers`` leading layers and any trailing remainder run
-  unstacked.
+  unstacked (DeepSeek-V2: one dense layer before its MoE layers).
 
 Caches follow the same grouping: {"pos", "pre_i", "scan_p" (stacked),
 "rem_r"}.  With ``cfg.remat`` a training forward that records gradients
 runs each period under ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint`` of its scan body): memory, not values, changes.  The block kinds are attention (full / sliding-window / local)
-and RG-LRU (RecurrentGemma: (rglru, rglru, local) periods, 26 = 8x3 + 2);
-the xLSTM blocks (mLSTM, sLSTM), Multi-head Latent Attention and MoE
-layers are ROADMAP queue 1, item 11: they raise.
+``jax.checkpoint`` of its scan body): memory, not values, changes.  The
+block kinds are attention (full / GQA / MQA / sliding-window / local),
+Multi-head Latent Attention and RG-LRU (RecurrentGemma: (rglru, rglru,
+local) periods, 26 = 8x3 + 2); an MLP is dense or MoE, whose router losses
+add to the aux loss.  The xLSTM blocks (mLSTM, sLSTM) are ROADMAP queue 1,
+item 11: they raise.
 """
 from __future__ import annotations
 
@@ -25,8 +27,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.config import (ATTENTION_KINDS, ATTN, LOCAL_ATTN, MLSTM,
-                                RGLRU, SLSTM, SWA, ModelConfig)
+from repro_torch.config import (ATTENTION_KINDS, ATTN, LOCAL_ATTN, MLA,
+                                MLSTM, RGLRU, SLSTM, SWA, ModelConfig)
 from repro_torch.models import attention, mlp, recurrent
 from repro_torch.models.base import ParamSpec, apply_norm, map_specs, norm_spec
 from repro_torch.sharding import cast_weight, constrain_batch, constrain_logits
@@ -44,6 +46,8 @@ def _needs_mlp(cfg: ModelConfig, kind: str) -> bool:
 
 
 def _kind_specs(cfg: ModelConfig, kind: str):
+    if kind == MLA:
+        return attention.mla_specs(cfg)
     if kind in (ATTN, SWA, LOCAL_ATTN):
         return attention.specs(cfg)
     if kind == RGLRU:
@@ -75,8 +79,7 @@ def apply_layer(params, x, cfg: ModelConfig, kind: str, moe_layer: bool, *,
                 mode: str, positions, cache, impl: str = "eager",
                 max_len=None):
     """One residual block. Returns (x, aux_loss_delta, new_cache)."""
-    if moe_layer:
-        raise _not_ported("a mixture-of-experts layer")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(params["norm1"], x, cfg)
     if kind in ATTENTION_KINDS:
         y, new_cache = attention.apply(params["mix"], h, cfg, mode=mode,
@@ -90,8 +93,12 @@ def apply_layer(params, x, cfg: ModelConfig, kind: str, moe_layer: bool, *,
     x = constrain_batch(x + y)
     if "mlp" in params:
         h = apply_norm(params["norm2"], x, cfg)
-        x = constrain_batch(x + mlp.apply(params["mlp"], h, cfg))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if moe_layer:
+            y, metrics = mlp.moe_apply(params["mlp"], h, cfg)
+            aux = aux + metrics["moe_aux_loss"] + metrics["moe_z_loss"]
+        else:
+            y = mlp.apply(params["mlp"], h, cfg)
+        x = constrain_batch(x + y)
     return x, aux, (new_cache if new_cache is not None else {})
 
 

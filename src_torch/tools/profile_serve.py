@@ -1,6 +1,7 @@
 """Where the serving path's time goes on the card: a registered model at
 full width (``--arch``, default H2O-Danube-1.8B), ``--batch`` requests x
-``--prompt`` prompt tokens (default 4 x 4500), random weights from seed 0.
+``--prompt`` prompt tokens (default 4 x 4500), random weights from seed 0;
+``--layers`` cuts the depth (DeepSeek-V2-236B does not fit one card whole).
 
 Times two prefills and a few decode steps on the host clock (each ending
 in a device sync; the first of each is the warm-up), decode steps with
@@ -11,6 +12,7 @@ one NVIDIA H100:
 
     python3 src_torch/tools/profile_serve.py
     python3 src_torch/tools/profile_serve.py --arch recurrentgemma-2b --prompt 4096
+    python3 src_torch/tools/profile_serve.py --arch deepseek-v2-236b --layers 2 --batch 1 --prompt 2048
 """
 import argparse
 import os
@@ -49,6 +51,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="h2o-danube-1.8b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=4500)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="layers to run (default: the config's depth)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serve: needs a CUDA card", file=sys.stderr)
@@ -57,12 +61,14 @@ def main(argv=None) -> int:
     torch.utils.deterministic.fill_uninitialized_memory = False
     dev = torch.device("cuda")
     cfg = get_model_config(args.arch)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     model = build_model(cfg)
     params = model.init(0, device=dev)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (args.batch, args.prompt))).to(dev)
-    print(f"{cfg.name}: {args.batch} x {args.prompt} prompt tokens",
-          flush=True)
+    print(f"{cfg.name}: {cfg.num_layers} layers, {args.batch} x "
+          f"{args.prompt} prompt tokens", flush=True)
     prefill = make_prefill_step(model, max_len=args.prompt + NEW,
                                 impl="flash")
     decode = make_decode_step(model, impl="flash")

@@ -196,7 +196,7 @@ def test_no_route_for_other_dtypes(dtype):
 #: the tensor-core kernel's dynamic shared memory: a Q block of 128 rows (64
 #: above hd 80) and two stages of K and V tiles (64 keys; 32 at hd 256),
 #: rows of hd + 8 bf16
-TC_SMEM = {32: 30_720, 64: 55_296, 80: 67_584, 128: 87_040, 256: 101_376}
+TC_SMEM = {16: 18_432, 32: 30_720, 64: 55_296, 80: 67_584, 128: 87_040, 256: 101_376}
 
 
 @pytest.mark.parametrize("hd", FA.HEAD_DIMS)
@@ -225,8 +225,8 @@ def test_tensor_core_rows_must_start_on_16_bytes():
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
-    q, k, v = _torch(_inputs(4, 1, 8, 4, 2, 16), "float32")
-    with pytest.raises(ValueError, match="head dim 16"):
+    q, k, v = _torch(_inputs(4, 1, 8, 4, 2, 24), "float32")
+    with pytest.raises(ValueError, match="head dim 24"):
         FA.flash_attention(q, k, v)
     q, k, v = _torch(_inputs(4, 1, 8, 4, 2, 64), "float32")
     with pytest.raises(TypeError):

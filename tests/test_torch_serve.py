@@ -36,14 +36,90 @@ def _leaves(tree, path=""):
 
 
 def test_main_on_the_cpu_prints_generated_ids(capsys):
+    """With no ``--arch``, the reference's default: Yi-34B's smoke variant
+    (head dim 16, through the flash kernel's twin)."""
     S.main(["--device", "cpu", "--new-tokens", "6"])
     out = capsys.readouterr().out
-    assert "arch=h2o-danube-1.8b-smoke batch=4 prompt=32 device=cpu" in out
+    assert "arch=yi-34b-smoke batch=4 prompt=32 device=cpu" in out
     line = [ln for ln in out.splitlines()
             if ln.startswith("generated ids (req 0):")]
     assert len(line) == 1
     ids = eval(line[0].split(":", 1)[1])
-    assert len(ids) == 6 and all(0 <= i < SMOKE.vocab_size for i in ids)
+    yi = TC.get_model_config("yi-34b", smoke=True)
+    assert len(ids) == 6 and all(0 <= i < yi.vocab_size for i in ids)
+
+
+def test_main_defaults_to_the_reference_arch(monkeypatch):
+    """Both launchers' parsed arguments, stopped before any model is
+    built."""
+    import argparse
+
+    import repro.launch.serve as RSV
+
+    parsed = []
+    real = argparse.ArgumentParser.parse_args
+
+    def stop(self, argv=None, namespace=None):
+        parsed.append(real(self, argv, namespace))
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    for main in (S.main, RSV.main):
+        with pytest.raises(SystemExit):
+            main([])
+    assert [a.arch for a in parsed] == ["yi-34b", "yi-34b"]
+
+
+def test_main_passes_a_vision_arch_its_patch_embeddings(monkeypatch, capsys):
+    """InternVL2-1B's smoke variant: ``main`` gives ``serve`` one
+    (batch, num_prefix_tokens, d_model) block of patch embeddings, drawn
+    from the seed after the prompt, as the reference's ``main`` does."""
+    seen = {}
+    real = S.serve
+
+    def spy(cfg, params, tokens, **kw):
+        seen.update(kw, tokens=tokens)
+        return real(cfg, params, tokens, **kw)
+
+    monkeypatch.setattr(S, "serve", spy)
+    S.main(["--arch", "internvl2-1b", "--device", "cpu", "--new-tokens", "3",
+            "--batch", "2", "--prompt-len", "8", "--seed", "3"])
+    cfg = TC.get_model_config("internvl2-1b", smoke=True)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 8), dtype=np.int64)
+    extra = rng.normal(size=(2, cfg.num_prefix_tokens,
+                             cfg.d_model)).astype(np.float32)
+    assert np.array_equal(seen["tokens"], tokens)
+    assert seen["extra_embeds"].shape == (2, 8, cfg.d_model)
+    assert np.array_equal(seen["extra_embeds"], extra)
+    out = capsys.readouterr().out
+    assert "arch=internvl2-1b-smoke batch=2 prompt=8" in out
+    # a text-only arch gets none
+    seen.clear()
+    S.main(["--arch", "h2o-danube-1.8b", "--device", "cpu", "--new-tokens",
+            "2"])
+    assert seen["extra_embeds"] is None
+
+
+def test_serve_sizes_the_cache_for_prefix_prompt_and_new_tokens(monkeypatch):
+    """The prefill step is built for N + S + new slots (the reference's
+    ``main`` leaves the N prefix slots out: ROADMAP queue 3)."""
+    seen = []
+    real = S.make_prefill_step
+
+    def spy(model, max_len=None, **kw):
+        seen.append(max_len)
+        return real(model, max_len=max_len, **kw)
+
+    monkeypatch.setattr(S, "make_prefill_step", spy)
+    cfg = TC.get_model_config("internvl2-1b", smoke=True)
+    params = build_model(cfg).init(0, device="cpu")
+    extra = np.zeros((1, cfg.num_prefix_tokens, cfg.d_model), np.float32)
+    S.serve(cfg, params, np.zeros((1, 5), np.int64), new_tokens=3,
+            device="cpu", extra_embeds=extra)
+    S.serve(cfg, params, np.zeros((1, 5), np.int64), new_tokens=3,
+            device="cpu")
+    assert seen == [cfg.num_prefix_tokens + 5 + 3, 5 + 3]
 
 
 def test_serve_matches_greedy_generate_and_the_reference_at_fp32():

@@ -56,10 +56,11 @@ def _port_mesh(names, shape):
 
 def _configs(arch, smoke):
     rcfg = RC.get_model_config(arch, smoke=smoke)
-    tcfg = TC.ModelConfig(**{f.name: getattr(rcfg, f.name)
-                             for f in dataclasses.fields(rcfg)
-                             if f.name not in ("moe", "mla")})
-    return rcfg, tcfg
+    kw = {f.name: getattr(rcfg, f.name) for f in dataclasses.fields(rcfg)}
+    kw["moe"] = TC.MoEConfig(**dataclasses.asdict(rcfg.moe))
+    if rcfg.mla is not None:
+        kw["mla"] = TC.MLAConfig(**dataclasses.asdict(rcfg.mla))
+    return rcfg, TC.ModelConfig(**kw)
 
 
 @pytest.fixture(autouse=True)
