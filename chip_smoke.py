@@ -1129,7 +1129,9 @@ RGLRU_SERVE = dict(B=RG_BATCH, S=RG_PROMPT, W=2560)
 FAMILY_GROUPS = ((16, 8), (14, 2), (56, 8), (64, 8), (48, 1))
 #: serve_families: arch -> (layers run, batch, prompt, new tokens), the
 #: depth cut only where one card cannot hold the model (a MoE period is one
-#: layer: DeepSeek-V2 keeps its dense first layer and one MoE layer)
+#: layer: DeepSeek-V2 keeps its dense first layer and one MoE layer).
+#: Whisper's requests carry 1500 frames each besides the prompt; 256 + 16
+#: tokens stay inside its 448-position decoder context
 FAMILIES = {
     "granite-moe-1b-a400m": (24, 4, 4096, 16),
     "internvl2-1b": (24, 4, 2048, 16),
@@ -1137,10 +1139,20 @@ FAMILIES = {
     "qwen3-32b": (2, 1, 2048, 8),
     "yi-34b": (2, 1, 2048, 8),
     "granite-34b": (2, 1, 2048, 8),
+    "xlstm-350m": (24, 4, 2048, 16),
+    "whisper-medium": (24, 4, 256, 16),
 }
+#: serve_families: the archs whose flash-vs-eager logits are held within
+#: SERVE_TOL in fp32, as RecurrentGemma-2B's: Whisper's 48 bf16 attention
+#: layers (24 encoder, 24 decoder) move its bf16 logits by 0.0625 between
+#: the two paths' roundings on the card; the bf16 gap and each bf16
+#: path's distance from the fp32 logits are reported
+F32_LOGITS = ("whisper-medium",)
 #: the families' prefill attention shapes (InternVL2's sequence holds its
-#: 256 patch embeddings before the prompt); DeepSeek-V2's MLA takes the
-#: eager path, as the reference's does
+#: 256 patch embeddings before the prompt; Whisper's encoder attends over
+#: its 1500 frames both ways, its decoder over the prompt causally);
+#: DeepSeek-V2's MLA takes the eager path, as the reference's does, and
+#: xLSTM has no attention
 FLASH_FAMILIES = {
     "granite-moe-1b-a400m": dict(B=4, S=4096, H=16, KV=8, hd=64, window=0,
                                  causal=True),
@@ -1151,6 +1163,10 @@ FLASH_FAMILIES = {
     "yi-34b": dict(B=1, S=2048, H=56, KV=8, hd=128, window=0, causal=True),
     "granite-34b": dict(B=1, S=2048, H=48, KV=1, hd=128, window=0,
                         causal=True),
+    "whisper-medium": dict(B=4, S=1500, H=16, KV=16, hd=64, window=0,
+                           causal=False),
+    "whisper-medium.decoder": dict(B=4, S=256, H=16, KV=16, hd=64, window=0,
+                                   causal=True),
 }
 #: secagg_mask's cases: up to the benchmark's N (benchmarks/run.py:259-263)
 SECAGG_N = (1, 7, 4097, 1 << 16)
@@ -1325,7 +1341,7 @@ def flash_bound(B, S, H, KV, hd, window, causal, itemsize: int):
 #: differ in how the softmax weights are rounded (fp32 in the kernel, bf16
 #: before the value product in the eager path), as the tests' 5e-2 for bf16.
 #: RecurrentGemma-2B's two paths are held to it in fp32 (see
-#: phase_serve_recurrentgemma)
+#: phase_serve_recurrentgemma), and so are Whisper-medium's (F32_LOGITS)
 SERVE_TOL = 5e-2
 
 
@@ -1402,7 +1418,8 @@ def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
     """The kernel per launch at a serving layer's shape ``f``, by CUDA
     events, beside its bound, its twin and the library yardstick
     ``scaled_dot_product_attention`` (enable_gqa, the same boolean causal +
-    window mask; timed only, never on the port's path)."""
+    window mask, or none for a non-causal layer with no window; timed only,
+    never on the port's path)."""
     from repro_torch.kernels import flash_attention as FA
 
     gen = torch.Generator(device=dev)
@@ -1425,9 +1442,12 @@ def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
     S = f["S"]
     qpos = torch.arange(S, device=dev)[:, None]
     kpos = torch.arange(S, device=dev)[None, :]
-    mask = kpos <= qpos
+    mask = None
+    if f["causal"]:
+        mask = kpos <= qpos
     if f["window"]:
-        mask &= kpos > qpos - f["window"]
+        band = kpos > qpos - f["window"]
+        mask = band if mask is None else mask & band
 
     def sdpa(q, k, v):
         return lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1453,7 +1473,8 @@ def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
                  + 2 * f["B"] * S * f["KV"] * f["hd"]) * 4
     f32_bound_ms, f32_bound_by = _bound(f32_bytes, flops, FP32_FLOPS)
     shape = (f"B{f['B']} S{S} H{f['H']}/KV{f['KV']} hd{f['hd']} "
-             f"window {f['window']} causal, bf16")
+             f"window {f['window']} {'causal' if f['causal'] else 'non-causal'}"
+             f", bf16")
     routes = {"tensor_core": {"dtype": "bfloat16", "ms": kernel_ms,
                               "tflops": flops / kernel_ms / 1e9,
                               "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1785,22 +1806,26 @@ def _routing_flips(sets: dict) -> list:
 
 
 def phase_serve_families(dev, card: str):
-    """Slice 12's main path: each of the six dense, VLM, MoE and MLA
-    architectures at full width, random weights from seed 0, through
-    ``launch.serve.serve`` with impl="flash", then the same weights and
-    prompt with impl="eager" (FAMILIES: depth cut only where one card
-    cannot hold the model).  InternVL2-1B's requests carry its 256 patch
-    embeddings (seeded normals).  Flash launches are read after each
-    prefill and after its decode loop (after one uncounted warm-up serve
-    per path at the same shapes): every attention layer's prefill
-    launches the kernel once on the tensor-core route (DeepSeek-V2's MLA
-    none, as the reference pins it to XLA), decode none.  The last-position
-    prefill logits of flash and eager agree within SERVE_TOL; for the MoE
-    archs each layer's top-k expert sets over every prompt token are
+    """Slices 12 and 13's main path: each of the six dense, VLM, MoE and
+    MLA architectures, xLSTM-350M and Whisper-medium at full width, random
+    weights from seed 0, through ``launch.serve.serve`` with impl="flash",
+    then the same weights and prompt with impl="eager" (FAMILIES: depth
+    cut only where one card cannot hold the model).  InternVL2-1B's
+    requests carry its 256 patch embeddings, Whisper's its 1500 audio
+    frames (seeded normals).  Flash launches are read after each prefill
+    and after its decode loop (after one uncounted warm-up serve per path
+    at the same shapes): every attention layer's prefill launches the
+    kernel once on the tensor-core route (Whisper: each encoder layer,
+    non-causal, and each decoder self-attention; DeepSeek-V2's MLA none,
+    as the reference pins it to XLA; xLSTM has no attention), decode
+    none.  The last-position prefill logits of flash and eager agree
+    within SERVE_TOL (for the F32_LOGITS archs, those of a further fp32
+    prefill each); for the MoE archs each layer's top-k expert sets over
+    every prompt token are
     compared between the two runs, and a logit gap past SERVE_TOL fails
     only where no routing differs (a bf16 difference upstream can flip a
     routing, and a flip moves the logits)."""
-    from repro_torch.config import MLA, get_model_config
+    from repro_torch.config import ATTENTION_KINDS, MLA, get_model_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import build_model
@@ -1840,7 +1865,10 @@ def phase_serve_families(dev, card: str):
         for arch, (layers, batch, prompt, new) in FAMILIES.items():
             full = get_model_config(arch)
             cfg = full.replace(num_layers=layers)
-            n_attn = sum(k != MLA for k in cfg.layer_kinds)
+            n_attn = sum(k in ATTENTION_KINDS and k != MLA
+                         for k in cfg.layer_kinds)
+            if cfg.is_encoder_decoder:
+                n_attn += cfg.num_encoder_layers
             moe_layers = (cfg.num_layers - cfg.moe.first_dense_layers
                           if cfg.moe.enabled else 0)
             gc_collect()
@@ -1853,16 +1881,21 @@ def phase_serve_families(dev, card: str):
             rng = np.random.default_rng(0)
             tokens = rng.integers(0, cfg.vocab_size, (batch, prompt),
                                   dtype=np.int64)
-            extra = None
+            extra = audio = None
             if cfg.frontend == "vision":
                 extra = torch.from_numpy(rng.normal(size=(
                     batch, cfg.num_prefix_tokens, cfg.d_model)).astype(
+                        np.float32)).to(dev)
+            if cfg.is_encoder_decoder:
+                audio = torch.from_numpy(rng.normal(size=(
+                    batch, cfg.encoder_seq, cfg.d_model)).astype(
                         np.float32)).to(dev)
             # warm-up at the timed shapes (cuBLAS's and the allocator's
             # first calls), uncounted: the counts are zeroed below
             for impl in ("flash", "eager"):
                 serve_mod.serve(cfg, params, tokens, new_tokens=2, impl=impl,
-                                device=dev, extra_embeds=extra)
+                                device=dev, extra_embeds=extra,
+                                audio_embeds=audio)
             runs, peaks, counts, sets = {}, {}, {}, {}
             for impl in ("flash", "eager"):
                 for key in FA.LAUNCHES:
@@ -1871,7 +1904,8 @@ def phase_serve_families(dev, card: str):
                 torch.cuda.reset_peak_memory_stats()
                 runs[impl] = serve_mod.serve(cfg, params, tokens,
                                              new_tokens=new, impl=impl,
-                                             device=dev, extra_embeds=extra)
+                                             device=dev, extra_embeds=extra,
+                                             audio_embeds=audio)
                 peaks[impl] = torch.cuda.max_memory_allocated()
                 pf, total = state["after_prefill"], launches()
                 counts[impl] = {
@@ -1912,12 +1946,32 @@ def phase_serve_families(dev, card: str):
             le = runs["eager"].prefill_logits[:, :V]
             err, exc = _excess(lf, le, SERVE_TOL)
             flipped = bool(flips) and max(flips) > 0
-            check(exc <= 1.0 or flipped,
-                  f"serve_families {arch}: prefill logits flash vs eager "
-                  f"|d| = {err} with the same routing")
+            f32 = {}
+            if arch in F32_LOGITS:
+                # the same prompt's prefill in fp32 through both paths
+                # (flash on its CUDA-core route), uncounted
+                model32 = build_model(cfg.replace(dtype="float32"))
+                batch32 = {"tokens": torch.as_tensor(tokens, device=dev)}
+                if audio is not None:
+                    batch32["audio_embeds"] = audio
+                for impl in ("flash", "eager"):
+                    step = make_prefill(model32, max_len=prompt + new,
+                                        impl=impl)
+                    f32[impl] = step(params, batch32)[0][:, :V].float()
+                f32_err, f32_exc = _excess(f32["flash"], f32["eager"],
+                                           SERVE_TOL)
+                check(f32_exc <= 1.0,
+                      f"serve_families {arch}: fp32 prefill logits flash vs "
+                      f"eager |d| = {f32_err}")
+            else:
+                check(exc <= 1.0 or flipped,
+                      f"serve_families {arch}: prefill logits flash vs eager "
+                      f"|d| = {err} with the same routing")
             row = dict(
                 card=card, arch=arch, params=n_params, layers=layers,
                 full_layers=full.num_layers,
+                encoder_layers=cfg.num_encoder_layers,
+                frames=(cfg.encoder_seq if audio is not None else 0),
                 depth_cut=layers < full.num_layers,
                 d_model=cfg.d_model, heads=cfg.num_heads,
                 kv_heads=cfg.num_kv_heads,
@@ -1935,13 +1989,20 @@ def phase_serve_families(dev, card: str):
                 logits_max_abs_diff=err, logits_tol=SERVE_TOL,
                 logits_excess=exc,
                 logits_max_abs=float(le.abs().max()),
+                logits_held_in=("float32" if f32 else "bfloat16"),
+                f32_logits_max_abs_diff=(f32_err if f32 else None),
+                f32_logits_excess=(f32_exc if f32 else None),
+                bf16_vs_f32_max_abs=(
+                    {"flash": _excess(lf, f32["flash"], SERVE_TOL)[0],
+                     "eager": _excess(le, f32["flash"], SERVE_TOL)[0]}
+                    if f32 else None),
                 routing_flip_share=flips,
                 routing_flips_explain_gap=(exc > 1.0 and flipped),
                 ids_agree=float((runs["flash"].ids
                                  == runs["eager"].ids).float().mean()))
             emit("serve_families", **row)
             out[arch] = row
-            del params, runs, extra, sets
+            del params, runs, extra, audio, sets, f32
             state["sets"] = []
     finally:
         serve_mod.make_prefill_step = make_prefill
@@ -3446,6 +3507,9 @@ def main() -> int:
         dev, card, FLASH_FAMILIES["granite-moe-1b-a400m"], seed=64)
     flash_hd128 = phase_flash_timing(dev, card, FLASH_FAMILIES["qwen3-32b"],
                                      seed=128)
+    # Whisper's encoder layer: the non-causal route at a serving shape
+    flash_enc = phase_flash_timing(dev, card, FLASH_FAMILIES["whisper-medium"],
+                                   seed=1500)
     rglru = phase_rglru_timing(dev, card)
     f32_tile = phase_shard_fold(dev, card)
     scatter = phase_sparse_fold(dev, card)
@@ -3491,10 +3555,12 @@ def main() -> int:
              launches=decode_launches),
         # launches: the bf16 prefills of the serving paths (H2O-Danube, hd
         # 80; RecurrentGemma, hd 256; the families, hd 64 and 128, per
-        # arch), all on the tensor-core route; the times at danube's shape,
-        # at RecurrentGemma's under "hd256", at granite-moe's and qwen3's
-        # under "hd64" and "hd128"; per route under "routes" (fp32: the
-        # CUDA-core kernel)
+        # arch: Whisper's encoder layers non-causal), all on the
+        # tensor-core route; the times at danube's shape, at
+        # RecurrentGemma's under "hd256", at granite-moe's and qwen3's
+        # under "hd64" and "hd128", at Whisper's encoder layer under
+        # "hd64_noncausal"; per route under "routes" (fp32: the CUDA-core
+        # kernel)
         dict(name="flash_attention", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:94",
              launches=flash_launches + rg_launches["flash_attention"]
@@ -3508,12 +3574,14 @@ def main() -> int:
                                 + sum(fam_launches.values()),
                                 "cuda_core": 0},
              hd256=flash_rg, hd64=flash_hd64, hd128=flash_hd128,
+             hd64_noncausal=flash_enc,
              max_abs_diff_by_route=flash_diff,
              **dict(flash, max_abs_diff=max(*flash_diff.values(),
                                             flash["max_abs_diff"],
                                             flash_rg["max_abs_diff"],
                                             flash_hd64["max_abs_diff"],
-                                            flash_hd128["max_abs_diff"]))),
+                                            flash_hd128["max_abs_diff"],
+                                            flash_enc["max_abs_diff"]))),
         dict(name="rglru_scan", source=src + "rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan.py:51",
              launches=rg_launches["rglru_scan"], max_abs_diff=rglru_diff,
@@ -3541,6 +3609,7 @@ def main() -> int:
             "library_ms", "share_of_bound", "gb_per_s", "trim_sum", "shape",
             "launches_by_path", "launches_by_route",
             "routes", "max_abs_diff_by_route", "hd256", "hd64", "hd128",
+            "hd64_noncausal",
             "over_64_clients",
             "q8_delta", "eager_scan_ms", "f32_tile", "floor_ms",
             "share_of_floor", "fold_call_ms", "wrapper_ms",

@@ -4,9 +4,9 @@ Every architecture is described by a :class:`ModelConfig`; training /
 serving / federated-learning behaviour by :class:`TrainConfig`,
 :class:`ServeConfig` and :class:`FLConfig`.  Architectures register
 themselves in
-:data:`ARCH_REGISTRY` (populated by ``repro_torch.configs``) and are
-selectable via ``--arch <id>``.  The port registers only the families it
-runs (:func:`list_archs`); the others come with their families' slices.
+:data:`ARCH_REGISTRY` (populated by ``repro_torch.configs``, the same
+architectures as the reference's, :func:`list_archs`) and are selectable
+via ``--arch <id>``.
 
 The four assigned input shapes are fixed here as :data:`INPUT_SHAPES`.
 """

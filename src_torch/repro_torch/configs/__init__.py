@@ -1,9 +1,7 @@
 """Architecture registry of the port -- one module per architecture.
 
 Importing this package populates ``repro_torch.config.ARCH_REGISTRY`` /
-``SMOKE_REGISTRY``.  Only the families the port runs are registered; the
-xLSTM (``xlstm-350m``) and encoder-decoder (``whisper-medium``) families
-come with their slice (ROADMAP queue 1, item 11).
+``SMOKE_REGISTRY`` with the same architectures as the reference's.
 """
 from repro_torch.configs import (  # noqa: F401
     deepseek_v2_236b,
@@ -14,5 +12,7 @@ from repro_torch.configs import (  # noqa: F401
     internvl2_1b,
     qwen3_32b,
     recurrentgemma_2b,
+    whisper_medium,
+    xlstm_350m,
     yi_34b,
 )

@@ -6,9 +6,11 @@ KV cache.  Prefill attention runs through the hand-written flash kernel
 (``impl="flash"``; an MLA layer always takes the eager contraction, as the
 reference's does).  A vision model's requests carry
 ``cfg.num_prefix_tokens`` precomputed patch embeddings (``extra_embeds``),
-prepended to the prompt.  ``--arch`` selects a registered architecture,
-in its smoke variant, as the reference does; :func:`serve` runs any
-config, the full-width one included.  ``--device`` picks the device
+prepended to the prompt; an encoder-decoder model's requests carry
+``cfg.encoder_seq`` audio frame embeddings (``audio_embeds``), which the
+prefill encodes once into the cross-attention cache.  ``--arch`` selects
+a registered architecture, in its smoke variant, as the reference does;
+:func:`serve` runs any config, the full-width one included.  ``--device`` picks the device
 (default: the CUDA card; ``--device cpu`` runs the kernels' plain twins).
 
     PYTHONPATH=src_torch python -m repro_torch.launch.serve --device cpu
@@ -44,13 +46,16 @@ def _sync(dev: torch.device) -> None:
 
 def serve(cfg: ModelConfig, params, tokens, *, new_tokens: int,
           impl: str = "flash", device: DeviceLike = None,
-          extra_embeds=None) -> ServeResult:
+          extra_embeds=None, audio_embeds=None) -> ServeResult:
     """Prefill the (B, S) prompt ``tokens`` once, then greedily decode
     ``new_tokens`` tokens (the first from the prefill's logits).  ``params``
     lie on ``device`` (None: the card).  ``extra_embeds`` (B, N, d), where
     given, are prepended to the prompt (a vision model's patch
     embeddings); the cache holds them too, N + S + new_tokens slots, so no
-    decode step overwrites a prompt slot."""
+    decode step overwrites a prompt slot.  ``audio_embeds`` (B, frames, d),
+    where given, are an encoder-decoder model's frames: they fill the
+    cross-attention cache, and the self-attention cache holds S +
+    new_tokens slots."""
     dev = resolve_device(device)
     model = build_model(cfg)
     batch = {"tokens": torch.as_tensor(tokens, device=dev)}
@@ -58,6 +63,8 @@ def serve(cfg: ModelConfig, params, tokens, *, new_tokens: int,
     if extra_embeds is not None:
         batch["extra_embeds"] = torch.as_tensor(extra_embeds, device=dev)
         n_prefix = batch["extra_embeds"].shape[1]
+    if audio_embeds is not None:
+        batch["audio_embeds"] = torch.as_tensor(audio_embeds, device=dev)
     max_len = n_prefix + batch["tokens"].shape[1] + new_tokens
     prefill = make_prefill_step(model, max_len=max_len, impl=impl)
     decode = make_decode_step(model, impl=impl)
@@ -100,12 +107,16 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     tokens = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
                           dtype=np.int64)
-    extra = None
+    extra = audio = None
     if cfg.frontend == "vision":
         extra = rng.normal(size=(args.batch, cfg.num_prefix_tokens,
                                  cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        audio = rng.normal(size=(args.batch, cfg.encoder_seq or 32,
+                                 cfg.d_model)).astype(np.float32)
     res = serve(cfg, params, tokens, new_tokens=args.new_tokens,
-                impl="flash", device=dev, extra_embeds=extra)
+                impl="flash", device=dev, extra_embeds=extra,
+                audio_embeds=audio)
     toks = res.ids.cpu().numpy()
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"device={dev}")

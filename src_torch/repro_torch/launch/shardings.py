@@ -4,9 +4,9 @@
 Maps every leaf of (TrainState | params | batch | cache) to a
 :class:`~repro_torch.sharding.NamedSharding` via the logical-axis rules in
 :mod:`repro_torch.sharding`.  Cache leaves get their logical axes from
-their key name + rank (the cache layout is defined by
-``transformer.init_cache``).  A sharding's ``placements`` are what
-``distribute_tensor`` takes.
+their key name + rank (the cache layout is defined by the model's
+``init_cache``: ``transformer``'s or ``encdec``'s).  A sharding's
+``placements`` are what ``distribute_tensor`` takes.
 """
 from __future__ import annotations
 
@@ -15,7 +15,6 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.config import InputShape
-from repro_torch.models import transformer
 from repro_torch.models.api import Model
 from repro_torch.optim.optimizers import AdamState
 from repro_torch.sharding import (DEFAULT_RULES, NamedSharding, _mesh_axis_sizes,
@@ -123,8 +122,7 @@ def cache_shardings(model: Model, batch: int, max_len: int, mesh,
     """``(shardings, cache)``: the cache built on the ``meta`` device (its
     shapes and dtypes) and one sharding per leaf, keyed by the leaf's
     name."""
-    model._decoder_only()
-    cache = transformer.init_cache(model.cfg, batch, max_len,
+    cache = model.trunk.init_cache(model.cfg, batch, max_len,
                                    torch.device("meta"))
 
     def walk(tree, key):

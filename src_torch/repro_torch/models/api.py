@@ -7,13 +7,15 @@
     cache = model.init_cache(batch_size, max_len)
     logits, cache, _ = model.apply(params, batch, mode="decode", cache=cache)
 
-``batch`` is a dict: tokens, labels, and (per family) extra_embeds.
+``batch`` is a dict: tokens, labels, and (per family) extra_embeds (a
+VLM's patch embeddings) or audio_embeds (an encoder-decoder's frames).
 Parameters are nested dicts of tensors with the reference's keys and
 shapes; :func:`params_from_reference` carries the reference's parameters
 across and :func:`to_arrays` carries them back, and
 :func:`train_state_from_reference` / :func:`train_state_to_arrays` do the
-same for a whole training state (params, optimizer moments, step).  Encoder-decoder models
-are ROADMAP queue 1, item 11: they raise.
+same for a whole training state (params, optimizer moments, step).
+Decoder-only models run :mod:`repro_torch.models.transformer`,
+encoder-decoder models :mod:`repro_torch.models.encdec`.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.base import abstract_params, axes_tree, init_params
 
 
@@ -33,16 +35,15 @@ from repro_torch.models.base import abstract_params, axes_tree, init_params
 class Model:
     cfg: ModelConfig
 
-    def _decoder_only(self) -> None:
-        if self.cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                "encoder-decoder models are not ported yet: ROADMAP queue 1, "
-                "item 11")
+    @property
+    def trunk(self):
+        """The module that runs this model: ``encdec`` or
+        ``transformer``."""
+        return encdec if self.cfg.is_encoder_decoder else transformer
 
     # ------------------------------------------------------------- params
     def param_specs(self):
-        self._decoder_only()
-        return transformer.param_specs(self.cfg)
+        return self.trunk.param_specs(self.cfg)
 
     def abstract(self):
         """The parameter tree on the ``meta`` device (shapes and dtypes)."""
@@ -64,9 +65,16 @@ class Model:
               cache: Optional[Dict] = None, impl: str = "eager",
               prefill_max_len: Optional[int] = None,
               last_logit_only: bool = False):
-        self._decoder_only()
         dev = params["embed"].device
         tokens = torch.as_tensor(batch["tokens"], device=dev)
+        if self.cfg.is_encoder_decoder:
+            audio = batch.get("audio_embeds")
+            if audio is not None:
+                audio = torch.as_tensor(audio, device=dev)
+            return encdec.forward(params, self.cfg, tokens, mode=mode,
+                                  audio_embeds=audio, cache=cache, impl=impl,
+                                  prefill_max_len=prefill_max_len,
+                                  last_logit_only=last_logit_only)
         extra = batch.get("extra_embeds")
         if extra is not None:
             extra = torch.as_tensor(extra, device=dev)
@@ -76,9 +84,8 @@ class Model:
                                    last_logit_only=last_logit_only)
 
     def init_cache(self, batch: int, max_len: int, device: DeviceLike = None):
-        self._decoder_only()
-        return transformer.init_cache(self.cfg, batch, max_len,
-                                      resolve_device(device))
+        return self.trunk.init_cache(self.cfg, batch, max_len,
+                                     resolve_device(device))
 
     def param_count(self) -> int:
         from repro_torch.models.base import ParamSpec

@@ -30,7 +30,9 @@ from repro_torch.sharding import constrain_scores, model_axis_size
 IMPLS = ("eager", "flash")
 
 
-def _chunk_size(S: int, target: int = 1024) -> int:
+def chunk_size(S: int, target: int = 1024) -> int:
+    """The reference's query chunk: the largest divisor of S up to
+    ``target`` (the eager attention's and the mLSTM's parallel form's)."""
     for c in range(min(target, S), 0, -1):
         if S % c == 0:
             return c
@@ -62,7 +64,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = torch.repeat_interleave(v, g, dim=2)
         KV, g = H, 1
     qg = q.reshape(B, S, KV, g, hd)
-    C = _chunk_size(S, chunk)
+    C = chunk_size(S, chunk)
     # the reference's preferred_element_type=float32: fp32 products, no
     # rounding of the scores to the input dtype
     k32 = k.float()

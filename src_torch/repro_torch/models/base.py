@@ -11,7 +11,7 @@ from __future__ import annotations
 import math
 import zlib
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +51,32 @@ def abstract_params(specs, param_dtype: str = "float32"):
 def axes_tree(specs):
     """Each leaf's logical axes, same keys."""
     return map_specs(lambda s: s.axes, specs)
+
+
+def index_layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: index_layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def unbind_layers(tree, n: int) -> List[Dict]:
+    """The ``n`` layers of a stacked tree (views, no copy).  One
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where indexing layer by layer would build a zero-filled stacked-size
+    gradient for every layer (L^2 memory traffic in a training step)."""
+    if isinstance(tree, dict):
+        per_key = {k: unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def stack_layers(trees: List[Dict]):
+    """The per-layer trees stacked on a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
 
 
 def iter_leaves(tree, path: str = "") -> Iterator[Tuple[str, object]]:
@@ -194,6 +220,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+    """(seq, dim) fp32 sine / cosine position table: sines in the even
+    columns, cosines in the odd ones."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    inv = torch.exp(-torch.arange(0, dim, 2, dtype=torch.float32,
+                                  device=device) / dim * math.log(10000.0))
+    ang = pos * inv[None, :]
+    emb = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    emb[:, 0::2] = torch.sin(ang)
+    emb[:, 1::2] = torch.cos(ang)
+    return emb
 
 
 def softcap(logits: torch.Tensor, cap: float):

@@ -1,27 +1,33 @@
 """Recurrent blocks (port of ``repro/models/recurrent.py``): the
-Griffin / RecurrentGemma RG-LRU block.  The xLSTM blocks (mLSTM, sLSTM) are
-ROADMAP queue 1, item 11: the trunk raises on them.
+Griffin / RecurrentGemma RG-LRU block and the xLSTM mLSTM and sLSTM
+blocks.
 
-The RG-LRU block has the attention blocks' contract:
-  rglru_specs(cfg)                          -> ParamSpec tree (one layer)
-  rglru_init_cache(cfg, batch, device)      -> decode state (one layer)
-  rglru_apply(params, x, cfg, *, mode, cache, impl) -> (y, new_cache)
+Each has the attention blocks' contract:
+  *_specs(cfg)                          -> ParamSpec tree (one layer)
+  *_init_cache(cfg, batch, device)      -> decode state (one layer)
+  *_apply(params, x, cfg, *, mode, cache) -> (y, new_cache)
 
-Decode advances the recurrent state by one token, ``h = a * h0 + gx``.
-Prefill and train run the recurrence over the whole sequence, selected by
-``impl`` as the attention contraction is:
+Decode advances the recurrent state by one token.  Prefill and train run
+the whole sequence:
 
-- ``impl="flash"`` (the counterpart of the reference's Pallas path) runs
-  the hand-written Hopper kernel
+- RG-LRU runs its recurrence ``h = a * h0 + gx``, selected by ``impl`` as
+  the attention contraction is: ``impl="flash"`` (the counterpart of the
+  reference's Pallas path) runs the hand-written Hopper kernel
   :func:`repro_torch.kernels.rglru_scan.rglru_scan` (its plain twin on a
-  CPU tensor) on ``(a, gx, h0)``;
-- ``impl="eager"`` (the counterpart of ``"xla"``, whose model runs
-  ``lax.associative_scan``) runs :func:`linear_scan_eager`, a log-depth
-  scan in plain torch ops over ``(a, gx)`` with ``a_0 * h0`` folded into
-  ``gx_0``, as the reference does.
+  CPU tensor) on ``(a, gx, h0)``; ``impl="eager"`` (the counterpart of
+  ``"xla"``, whose model runs ``lax.associative_scan``) runs
+  :func:`linear_scan_eager`, a log-depth scan in plain torch ops over
+  ``(a, gx)`` with ``a_0 * h0`` folded into ``gx_0``, as the reference
+  does;
+- mLSTM runs the stabilised parallel (quadratic) form, chunked over
+  queries as the reference chunks it; a prefill also builds the final
+  ``(C, n, m)`` state;
+- sLSTM is sequential: a Python loop over the sequence of
+  :func:`_slstm_cell` (the reference's ``lax.scan``).
 
-The recurrence and its gates are fp32 wherever the reference computes
-them in fp32.
+The xLSTM blocks are plain torch on either ``impl``: the reference's are
+XLA graphs on either of its paths.  The recurrences and their gates are
+fp32 wherever the reference computes them in fp32.
 """
 from __future__ import annotations
 
@@ -29,8 +35,11 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.config import ModelConfig
+from repro_torch.models.attention_impl import chunk_size
 from repro_torch.models.base import ParamSpec, activation
 from repro_torch.sharding import cast_weight
 
@@ -184,3 +193,254 @@ def rglru_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
 
     y = y_rec.to(x.dtype) * gate
     return y @ cast_weight(params["wo"], x.dtype, ("mlp", "embed")), new_cache
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``-jax.nn.softplus(-x)``: softplus as ``logaddexp(x, 0)``, which
+    ``F.softplus`` is not past its linear threshold."""
+    return -torch.logaddexp(-x, torch.zeros_like(x))
+
+
+# ===========================================================================
+# mLSTM (xLSTM, arXiv:2405.04517) -- matrix memory, parallelizable
+# ===========================================================================
+def mlstm_specs(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    di = int(cfg.mlstm_proj_factor * d)
+    H = cfg.num_heads
+    dk = di // H
+    return {
+        "w_up": ParamSpec((d, 2 * di), ("embed", "mlp")),
+        "conv_w": ParamSpec((cfg.conv_width, di), ("conv", "mlp"), "normal",
+                            scale=1.0 / math.sqrt(cfg.conv_width)),
+        "conv_b": ParamSpec((di,), ("mlp",), "zeros"),
+        "wq": ParamSpec((di, H, dk), ("mlp", "heads", "head_dim")),
+        "wk": ParamSpec((di, H, dk), ("mlp", "heads", "head_dim")),
+        "wv": ParamSpec((di, H, dk), ("mlp", "heads", "head_dim")),
+        "w_if": ParamSpec((di, 2 * H), ("mlp", "heads"), "normal", scale=0.02),
+        "b_if": ParamSpec((2 * H,), ("heads",), "zeros"),
+        "gn_scale": ParamSpec((H, dk), ("heads", "head_dim"), "zeros"),
+        "skip_scale": ParamSpec((di,), ("mlp",), "ones"),
+        "w_down": ParamSpec((di, d), ("mlp", "embed")),
+    }
+
+
+def mlstm_init_cache(cfg: ModelConfig, batch: int, device: torch.device
+                     ) -> Dict:
+    di = int(cfg.mlstm_proj_factor * cfg.d_model)
+    H = cfg.num_heads
+    dk = di // H
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "C": torch.zeros((batch, H, dk, dk), **f32),
+        "n": torch.zeros((batch, H, dk), **f32),
+        "m": torch.full((batch, H), -1e30, **f32),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, di),
+                            dtype=cfg.compute_dtype, device=device),
+    }
+
+
+def _groupnorm_heads(h: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """h: (B,S,H,dk) per-head normalization, fp32 (the population
+    variance, as ``jnp.var``)."""
+    h32 = h.float()
+    mu = torch.mean(h32, dim=-1, keepdim=True)
+    var = torch.var(h32, dim=-1, keepdim=True, correction=0)
+    y = (h32 - mu) * torch.rsqrt(var + 1e-6)
+    return y * (1.0 + scale.float())
+
+
+def _mlstm_chunk(start: int, Fq, qc, F_all, i_raw, k32, v32):
+    """Rows ``start..start+Cq`` of the stabilised parallel form.  Fq:
+    (B,Cq,H) cumulative log forget gates of the chunk's queries; qc:
+    (B,Cq,H,dk); F_all, i_raw: (B,S,H); k32, v32: (B,S,H,dk)."""
+    S = F_all.shape[1]
+    logd = (Fq[:, :, None, :] - F_all[:, None, :, :]
+            + i_raw[:, None, :, :])                      # (B,Cq,Sk,H)
+    qpos = start + torch.arange(Fq.shape[1], device=Fq.device)[:, None]
+    kpos = torch.arange(S, device=Fq.device)[None, :]
+    logd = logd.masked_fill(~(kpos <= qpos)[None, :, :, None], -math.inf)
+    mrow = torch.amax(logd, dim=2)                       # (B,Cq,H)
+    D = torch.exp(logd - mrow[:, :, None, :])
+    del logd
+    sc = torch.einsum("bqnh,bknh->bqkn", qc, k32) * D
+    del D
+    norm = torch.maximum(torch.abs(sc.sum(2)), torch.exp(-mrow))
+    return torch.einsum("bqkn,bknh->bqnh", sc, v32) / norm[..., None]
+
+
+def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+                cache: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    B, S, d = x.shape
+    H = cfg.num_heads
+    up = x @ cast_weight(params["w_up"], x.dtype, ("embed", "mlp"))
+    xm, z = torch.chunk(up, 2, dim=-1)                   # (B,S,di) each
+    di = xm.shape[-1]
+    dk = di // H
+    conv_state = cache["conv"] if cache is not None else None
+    xc, new_conv = _causal_conv(xm, params["conv_w"], params["conv_b"],
+                                conv_state)
+    xc = F.silu(xc)
+
+    # the reference divides by a weakly typed scalar: rounded to x's dtype
+    rdk = torch.tensor(math.sqrt(dk), dtype=torch.float32).to(x.dtype)
+    axes = ("mlp", "heads", "head_dim")
+    wq = cast_weight(params["wq"], x.dtype, axes).reshape(di, di)
+    wk = cast_weight(params["wk"], x.dtype, axes).reshape(di, di)
+    wv = cast_weight(params["wv"], x.dtype, axes).reshape(di, di)
+    q = (xc @ wq).view(B, S, H, dk) / rdk
+    k = (xc @ wk).view(B, S, H, dk) / rdk
+    v = (xm @ wv).view(B, S, H, dk)
+    if_gates = (xc @ cast_weight(params["w_if"], x.dtype, ("mlp", "heads"))
+                + params["b_if"].to(x.dtype)).float()
+    i_raw, f_raw = torch.chunk(if_gates, 2, dim=-1)      # (B,S,H)
+    logf = _log_sigmoid(f_raw)
+
+    if mode == "decode":
+        C0, n0, m0 = cache["C"], cache["n"], cache["m"]
+        i1, f1 = i_raw[:, 0], logf[:, 0]                 # (B,H)
+        m1 = torch.maximum(f1 + m0, i1)
+        fs = torch.exp(f1 + m0 - m1)[..., None]
+        isc = torch.exp(i1 - m1)[..., None]
+        k1, v1, q1 = k[:, 0].float(), v[:, 0].float(), q[:, 0].float()
+        C1 = (fs[..., None] * C0
+              + isc[..., None] * k1[..., :, None] * v1[..., None, :])
+        n1 = fs * n0 + isc * k1
+        num = torch.einsum("bhk,bhkv->bhv", q1, C1)
+        den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", q1, n1)),
+                            torch.exp(-m1))[..., None]
+        h = (num / den)[:, None]                         # (B,1,H,dk)
+        new_cache = {"C": C1, "n": n1, "m": m1, "conv": new_conv}
+    elif mode in ("train", "prefill"):
+        # the stabilised parallel form, chunked over queries as the
+        # reference chunks it: (B,Cq,S,H) fp32 tensors per chunk, each
+        # chunk recomputed in the backward pass (the reference's
+        # jax.checkpoint of its chunk body)
+        F_all = torch.cumsum(logf, dim=1)                # (B,S,H)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        Cq = chunk_size(S)
+        remat = torch.is_grad_enabled() and Cq < S
+        parts = []
+        for start in range(0, S, Cq):
+            args = (start, F_all[:, start:start + Cq],
+                    q32[:, start:start + Cq], F_all, i_raw, k32, v32)
+            parts.append(torch.utils.checkpoint.checkpoint(
+                _mlstm_chunk, *args, use_reentrant=False) if remat
+                else _mlstm_chunk(*args))
+        h = torch.cat(parts, dim=1)
+        new_cache = None
+        if mode == "prefill":
+            # the final recurrent state, for decode to continue from
+            w = F_all[:, -1:, :] - F_all + i_raw         # (B,S,H)
+            ms = torch.amax(w, dim=1)                    # (B,H)
+            wexp = torch.exp(w - ms[:, None, :])
+            Cf = torch.einsum("bsn,bsnk,bsnv->bnkv", wexp, k32, v32)
+            nf = torch.einsum("bsn,bsnk->bnk", wexp, k32)
+            new_cache = {"C": Cf, "n": nf, "m": ms, "conv": new_conv}
+    else:
+        raise ValueError(mode)
+
+    h = _groupnorm_heads(h, params["gn_scale"]).reshape(B, -1, di) \
+        .to(x.dtype)
+    h = h + params["skip_scale"].to(x.dtype) * xc
+    y = h * F.silu(z)
+    return y @ cast_weight(params["w_down"], x.dtype, ("mlp", "embed")), \
+        new_cache
+
+
+# ===========================================================================
+# sLSTM (xLSTM) -- scalar memory, sequential recurrence
+# ===========================================================================
+SLSTM_GATES = ("z", "i", "f", "o")
+
+
+def slstm_specs(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    H = cfg.num_heads
+    f = int(cfg.slstm_proj_factor * d)
+    sp = {}
+    for g in SLSTM_GATES:
+        sp[f"w_{g}"] = ParamSpec((d, d), ("embed", "mlp"))
+        sp[f"r_{g}"] = _block_diag_spec(H, d)
+        sp[f"b_{g}"] = ParamSpec((d,), ("mlp",), "zeros")
+    sp["gn_scale"] = ParamSpec((H, d // H), ("heads", "head_dim"), "zeros")
+    sp["ffn"] = {
+        "wi_gate": ParamSpec((d, f), ("embed", "mlp")),
+        "wi_up": ParamSpec((d, f), ("embed", "mlp")),
+        "wo": ParamSpec((f, d), ("mlp", "embed")),
+    }
+    return sp
+
+
+def slstm_init_cache(cfg: ModelConfig, batch: int, device: torch.device
+                     ) -> Dict:
+    d = cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "sc": torch.zeros((batch, d), **f32),
+        "sn": torch.full((batch, d), 1e-6, **f32),
+        "sm": torch.full((batch, d), -1e30, **f32),
+        "sh": torch.zeros((batch, d), **f32),
+    }
+
+
+def _slstm_cell(params, x_t: Dict[str, torch.Tensor], state, cfg: ModelConfig):
+    """x_t: (B,d) pre-projected inputs per gate; state: (c,n,m,h)."""
+    c, n, m, h = state
+    H = cfg.num_heads
+    hd = h.float()
+
+    def gate(name):
+        rh = _block_diag_apply(params[f"r_{name}"], hd, H)
+        return x_t[name] + rh + params[f"b_{name}"].float()
+
+    z = torch.tanh(gate("z"))
+    i_raw = gate("i")
+    f_raw = gate("f")
+    o = torch.sigmoid(gate("o"))
+    logf = _log_sigmoid(f_raw)
+    m1 = torch.maximum(logf + m, i_raw)
+    i1 = torch.exp(i_raw - m1)
+    f1 = torch.exp(logf + m - m1)
+    c1 = f1 * c + i1 * z
+    n1 = f1 * n + i1
+    h1 = o * c1 / torch.clamp(n1, min=1e-6)
+    return (c1, n1, m1, h1)
+
+
+def slstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+                cache: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    B, S, d = x.shape
+    H = cfg.num_heads
+    # the input contributions of every gate, for all of S at once
+    xg = {g: (x @ cast_weight(params[f"w_{g}"], x.dtype, ("embed", "mlp")))
+          .float() for g in SLSTM_GATES}
+
+    if cache is not None:
+        state = (cache["sc"], cache["sn"], cache["sm"], cache["sh"])
+    else:
+        state = tuple(slstm_init_cache(cfg, B, x.device).values())
+
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(mode)
+    # the reference's lax.scan over S (decode: S == 1)
+    steps = []
+    for t in range(S):
+        state = _slstm_cell(params, {g: xg[g][:, t] for g in xg}, state, cfg)
+        steps.append(state[3])
+    hs = torch.stack(steps, dim=1)                       # (B,S,d)
+    new_cache = None
+    if mode != "train":
+        new_cache = dict(zip(("sc", "sn", "sm", "sh"), state))
+
+    y = _groupnorm_heads(hs.reshape(B, -1, H, d // H),
+                         params["gn_scale"]).reshape(B, -1, d).to(x.dtype)
+    # the gated FFN after the sLSTM (proj factor 4/3)
+    act = activation(cfg.act)
+    f = params["ffn"]
+    g = y @ cast_weight(f["wi_gate"], x.dtype, ("embed", "mlp"))
+    u = y @ cast_weight(f["wi_up"], x.dtype, ("embed", "mlp"))
+    y = (act(g) * u) @ cast_weight(f["wo"], x.dtype, ("mlp", "embed"))
+    return y, new_cache

@@ -15,10 +15,10 @@ Caches follow the same grouping: {"pos", "pre_i", "scan_p" (stacked),
 runs each period under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` of its scan body): memory, not values, changes.  The
 block kinds are attention (full / GQA / MQA / sliding-window / local),
-Multi-head Latent Attention and RG-LRU (RecurrentGemma: (rglru, rglru,
-local) periods, 26 = 8x3 + 2); an MLP is dense or MoE, whose router losses
-add to the aux loss.  The xLSTM blocks (mLSTM, sLSTM) are ROADMAP queue 1,
-item 11: they raise.
+Multi-head Latent Attention, RG-LRU (RecurrentGemma: (rglru, rglru,
+local) periods, 26 = 8x3 + 2) and the xLSTM blocks (xLSTM-350M: periods of
+7 mLSTM + 1 sLSTM, which carry their own projections and no MLP); an MLP
+is dense or MoE, whose router losses add to the aux loss.
 """
 from __future__ import annotations
 
@@ -30,13 +30,10 @@ import torch.utils.checkpoint
 from repro_torch.config import (ATTENTION_KINDS, ATTN, LOCAL_ATTN, MLA,
                                 MLSTM, RGLRU, SLSTM, SWA, ModelConfig)
 from repro_torch.models import attention, mlp, recurrent
-from repro_torch.models.base import ParamSpec, apply_norm, map_specs, norm_spec
+from repro_torch.models.base import (ParamSpec, apply_norm, index_layer,
+                                     map_specs, norm_spec, stack_layers,
+                                     unbind_layers)
 from repro_torch.sharding import cast_weight, constrain_batch, constrain_logits
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue 1, item 11")
 
 
 def _needs_mlp(cfg: ModelConfig, kind: str) -> bool:
@@ -52,7 +49,11 @@ def _kind_specs(cfg: ModelConfig, kind: str):
         return attention.specs(cfg)
     if kind == RGLRU:
         return recurrent.rglru_specs(cfg)
-    raise _not_ported(f"block kind {kind!r}")
+    if kind == MLSTM:
+        return recurrent.mlstm_specs(cfg)
+    if kind == SLSTM:
+        return recurrent.slstm_specs(cfg)
+    raise ValueError(kind)
 
 
 def layer_specs(cfg: ModelConfig, kind: str, moe_layer: bool) -> Dict:
@@ -72,7 +73,11 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         return attention.init_cache(cfg, batch, max_len, kind, device)
     if kind == RGLRU:
         return recurrent.rglru_init_cache(cfg, batch, device)
-    raise _not_ported(f"block kind {kind!r}")
+    if kind == MLSTM:
+        return recurrent.mlstm_init_cache(cfg, batch, device)
+    if kind == SLSTM:
+        return recurrent.slstm_init_cache(cfg, batch, device)
+    raise ValueError(kind)
 
 
 def apply_layer(params, x, cfg: ModelConfig, kind: str, moe_layer: bool, *,
@@ -88,8 +93,14 @@ def apply_layer(params, x, cfg: ModelConfig, kind: str, moe_layer: bool, *,
     elif kind == RGLRU:
         y, new_cache = recurrent.rglru_apply(params["mix"], h, cfg, mode=mode,
                                              cache=cache, impl=impl)
+    elif kind == MLSTM:
+        y, new_cache = recurrent.mlstm_apply(params["mix"], h, cfg, mode=mode,
+                                             cache=cache)
+    elif kind == SLSTM:
+        y, new_cache = recurrent.slstm_apply(params["mix"], h, cfg, mode=mode,
+                                             cache=cache)
     else:
-        raise _not_ported(f"block kind {kind!r}")
+        raise ValueError(kind)
     x = constrain_batch(x + y)
     if "mlp" in params:
         h = apply_norm(params["norm2"], x, cfg)
@@ -148,32 +159,6 @@ def param_specs(cfg: ModelConfig) -> Dict:
     return sp
 
 
-def _index(tree, i: int):
-    """Layer ``i`` of a stacked tree (views, no copy)."""
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
-def _unbind(tree, n: int) -> List[Dict]:
-    """The ``n`` layers of a stacked tree (views, no copy).  One
-    ``unbind`` per leaf: its backward stacks the layers' gradients once,
-    where indexing layer by layer would build a zero-filled stacked-size
-    gradient for every layer (L^2 memory traffic in a training step)."""
-    if isinstance(tree, dict):
-        per_key = {k: _unbind(v, n) for k, v in tree.items()}
-        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
-    return list(tree.unbind(0))
-
-
-def _stack(trees: List[Dict]):
-    """The per-layer trees stacked on a new leading axis."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> Dict:
     n_pre, P, n_periods, n_rem, kinds = _grouping(cfg)
@@ -183,7 +168,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache[f"pre_{i}"] = _layer_cache(cfg, kinds[i], batch, max_len, device)
     for p in range(P):
         one = _layer_cache(cfg, kinds[n_pre + p], batch, max_len, device)
-        cache[f"scan_{p}"] = _stack([one] * n_periods)
+        cache[f"scan_{p}"] = stack_layers([one] * n_periods)
     for r in range(n_rem):
         li = n_pre + n_periods * P + r
         cache[f"rem_{r}"] = _layer_cache(cfg, kinds[li], batch, max_len,
@@ -237,7 +222,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, mode: str,
         new_cache[f"pre_{i}"] = nc
 
     # --- stacked periods (the reference's lax.scan) --------------------------
-    layers = [_unbind(params[f"scan_{p}"], n_periods) if n_periods else []
+    layers = [unbind_layers(params[f"scan_{p}"], n_periods) if n_periods else []
               for p in range(P)]
     if n_periods > 0 and cfg.remat and mode == "train" \
             and torch.is_grad_enabled():
@@ -259,14 +244,14 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, mode: str,
         for i in range(n_periods):
             for p in range(P):
                 li = n_pre + p
-                layer_cache = (_index(cache[f"scan_{p}"], i)
+                layer_cache = (index_layer(cache[f"scan_{p}"], i)
                                if cache is not None else None)
                 x, aux, nc = run(layers[p][i], x, kinds[li],
                                  _is_moe_layer(cfg, li), layer_cache)
                 aux_total = aux_total + aux
                 period_caches[p].append(nc)
         for p in range(P):
-            new_cache[f"scan_{p}"] = _stack(period_caches[p])
+            new_cache[f"scan_{p}"] = stack_layers(period_caches[p])
 
     # --- remainder layers -----------------------------------------------------
     for r in range(n_rem):

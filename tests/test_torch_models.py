@@ -137,7 +137,9 @@ def test_registry_holds_danube_as_the_reference_does():
     assert TC.list_archs() == ["deepseek-v2-236b", "flower-quickstart",
                                "granite-34b", "granite-moe-1b-a400m",
                                "h2o-danube-1.8b", "internvl2-1b",
-                               "qwen3-32b", "recurrentgemma-2b", "yi-34b"]
+                               "qwen3-32b", "recurrentgemma-2b",
+                               "whisper-medium", "xlstm-350m", "yi-34b"]
+    assert TC.list_archs() == list(RC.list_archs())
     for smoke in (False, True):
         r = RC.get_model_config("h2o-danube-1.8b", smoke=smoke)
         assert port_config(r) == TC.get_model_config("h2o-danube-1.8b",
@@ -152,8 +154,9 @@ def test_registry_holds_danube_as_the_reference_does():
     assert {k: dataclasses.asdict(v) for k, v in TC.INPUT_SHAPES.items()} \
         == {k: dataclasses.asdict(v) for k, v in RC.INPUT_SHAPES.items()}
     for arch in ("xlstm-350m", "whisper-medium"):
-        with pytest.raises(KeyError):
-            TC.get_model_config(arch)
+        for smoke in (False, True):
+            assert TC.get_model_config(arch, smoke=smoke) == port_config(
+                RC.get_model_config(arch, smoke=smoke))
 
 
 def test_full_width_param_tree_has_the_reference_keys_and_shapes():
@@ -608,16 +611,19 @@ def test_unported_kinds_raise():
     with pytest.raises(ValueError, match="unknown attention impl"):
         attention_impl.causal_attention(q, q, q, impl="pallas")
     cfg = TC.get_model_config("h2o-danube-1.8b", smoke=True)
-    # the xLSTM blocks and encoder-decoder models (ROADMAP queue 1, item
-    # 11); MLA and MoE layers run since they were ported
-    for kinds in (("mlstm",), ("slstm",)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            transformer.param_specs(cfg.replace(block_pattern=kinds))
-        with pytest.raises(NotImplementedError, match="item 11"):
-            transformer.init_cache(cfg.replace(block_pattern=kinds), 1, 8,
-                                   torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_model(cfg.replace(is_encoder_decoder=True)).param_specs()
+    # a block kind the reference does not know raises as the reference's
+    # does; every kind it knows runs since the xLSTM blocks, the
+    # encoder-decoder trunk, MLA and MoE layers were ported
+    with pytest.raises(ValueError, match="conv"):
+        transformer.param_specs(cfg.replace(block_pattern=("conv",)))
+    with pytest.raises(ValueError, match="conv"):
+        transformer.init_cache(cfg.replace(block_pattern=("conv",)), 1, 8,
+                               torch.device("cpu"))
+    for kind, key in (("mlstm", "wq"), ("slstm", "r_z")):
+        assert key in transformer.param_specs(
+            cfg.replace(block_pattern=(kind,)))["scan_0"]["mix"]
+    assert "enc_scan" in build_model(
+        cfg.replace(is_encoder_decoder=True)).param_specs()
     moe = cfg.replace(moe=TC.MoEConfig(num_experts=4, experts_per_token=2,
                                        d_ff=64))
     assert "router" in transformer.param_specs(moe)["scan_0"]["mlp"]
