@@ -50,7 +50,11 @@ H2O-Danube-1.8B at full width and depth trained by ``get_train_step`` for
 a few AdamW steps of 4 x 4096 tokens in 4 microbatches (eager, so no
 kernel's count may move), timed and profiled, with the card's fp32 step
 held against the CPU's at 2 layers, remat on against off bitwise, and the
-training launcher's save and resume.  It also folds a
+training launcher's save and resume; and slice 14's examples: the
+paper's quickstart (Fig. 5), secure federation, hybrid tracking (Fig. 6)
+and multi-job runs through each example's ``main()`` on the card, and the
+legacy baseline: the frozen per-layer ``LegacyFedAvg`` on the host against
+the port's FedAvg fold on the card at 50M x 16, bitwise.  It also folds a
 50M-parameter x 16-client round at the benchmark's geometry (FedAvg,
 then median, trimmed mean and Krum on distinct payloads), times each
 kernel at its main path's shape beside its bound (``scatter_wsum`` also
@@ -2687,6 +2691,136 @@ def phase_secagg_timing(dev, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 13b: the paper's four examples on the card (slice 14)
+# ---------------------------------------------------------------------------
+EXAMPLES = ("quickstart", "secure_federation", "hybrid_tracking",
+            "multi_job")
+
+
+def _run_example(name: str, dev):
+    """``main([], device=dev)`` of ``repro_torch.examples.<name>``;
+    hybrid_tracking runs in a temporary working directory (it exports
+    ``metrics_fig6.json`` there), removed afterwards."""
+    import importlib
+    import shutil
+    import tempfile
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    if name != "hybrid_tracking":
+        return mod, mod.main([], device=dev)
+    cwd, tmp = os.getcwd(), tempfile.mkdtemp(prefix="fig6_")
+    os.chdir(tmp)
+    try:
+        return mod, mod.main([], device=dev)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp)
+
+
+def phase_examples(dev):
+    """Each ported example's ``main()`` on the card, clients fitting and
+    servers folding there: quickstart's Fig. 5 (native == FLARE bitwise,
+    losses falling), secure_federation's SecAgg within the fixed-point
+    quantization of plain FedAvg, hybrid_tracking's streamed tags and
+    exported JSON, multi_job's two concurrent jobs COMPLETED.  Counts
+    ``weighted_sum`` launches per example and times each on the host
+    clock."""
+    from repro_torch.kernels import agg_reduce
+
+    report, launches = {}, {}
+    for name in EXAMPLES:
+        agg_reduce.LAUNCHES["weighted_sum"] = 0
+        t0 = time.perf_counter()
+        mod, res = _run_example(name, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[name] = agg_reduce.LAUNCHES["weighted_sum"]
+        row = {"seconds": seconds, "weighted_sum_launches": launches[name]}
+        if name == "quickstart":
+            losses = [l for _, l in res["native"].losses()]
+            check(res["bitwise"], "quickstart: native != FLARE (Fig. 5)")
+            check(len(losses) == mod.ROUNDS and all(np.isfinite(losses))
+                  and losses[-1] < losses[0], f"quickstart: losses {losses}")
+            row.update(losses=losses, bitwise=True)
+        elif name == "secure_federation":
+            delta = res["max_param_delta"]
+            check(delta < mod.SECAGG_TOL,
+                  f"secure_federation: SecAgg vs plain FedAvg max |d| "
+                  f"{delta}")
+            check([r.metrics.get("secagg") for r in res["secagg"].rounds]
+                  == [1] * mod.ROUNDS,
+                  "secure_federation: rounds did not sum masked shares")
+            row.update(max_param_delta=delta, **{
+                f"{k}_losses": [l for _, l in res[k].losses()]
+                for k in ("plain", "secagg", "dp")})
+        elif name == "hybrid_tracking":
+            want = [f"{s}/{t}" for s in mod.SITES for t in mod.CLIENT_TAGS]
+            check(set(want) <= set(res["tags"]),
+                  f"hybrid_tracking: streamed {res['tags']}")
+            check(all(any(k.startswith(s + "/") for k in res["exported"])
+                      for s in mod.SITES),
+                  "hybrid_tracking: the export misses a site")
+            check(all(len(res["series"][f"{s}/train_loss"]) == mod.ROUNDS
+                      for s in mod.SITES),
+                  "hybrid_tracking: one train_loss point per round")
+            row.update(tags=len(res["tags"]),
+                       losses=[l for _, l in res["history"].losses()])
+        else:
+            recs = res["records"]
+            check([r.status.value for r in recs] == ["COMPLETED"] * 2,
+                  f"multi_job: {[(r.status.value, r.error) for r in recs]}")
+            row.update(status=[r.status.value for r in recs], losses={
+                job: [l for _, l in r.result.losses()]
+                for (job, _, _), r in zip(mod.JOBS, recs)})
+        report[name] = row
+    for name in EXAMPLES:
+        check(launches[name] > 0, f"{name} launched no weighted_sum")
+    emit("examples", examples=report, weighted_sum_launches=launches)
+    return launches
+
+
+def phase_legacy_baseline(dev, card: str):
+    """The reference bench's ``agg_throughput_50M_16clients`` row on the
+    port: the frozen per-layer numpy ``LegacyFedAvg`` over legacy-codec
+    frames on the host against the port's FedAvg folding flat frames on
+    the card (decode, ``weighted_sum``, finalize), at ``phase_fold``'s
+    geometry, one payload reused for every client; the two models
+    bitwise equal."""
+    from repro_torch.fl.legacy import LegacyFedAvg
+    from repro_torch.fl.messages import FitRes, decode_fit_res, encode_fit_res
+
+    frame, current, _ = _frames("flat")
+    legacy_frame = encode_fit_res(
+        FitRes(list(decode_fit_res(frame).parameters), 0, {}),
+        codec="legacy")
+
+    def legacy():
+        results = []
+        for c in range(CLIENTS):
+            r = decode_fit_res(legacy_frame)
+            r.num_examples = 10 + c
+            results.append((f"site-{c:02d}", r))
+        return LegacyFedAvg().aggregate_fit(1, results, [], current)[0]
+
+    fold = lambda: _fold(frame, current, None, backend="torch",  # noqa: E731
+                         low_memory=False)
+    sync_ms(fold)                       # the stack's first cudaMalloc
+    fold_ms, got = sync_ms(fold)
+    t0 = time.perf_counter()
+    want = legacy()
+    legacy_ms = (time.perf_counter() - t0) * 1e3
+    match = len(got) == len(want) and all(
+        a.dtype == b.dtype and a.tobytes() == b.tobytes()
+        for a, b in zip(got, want))
+    check(match, "legacy baseline: the port's FedAvg != LegacyFedAvg")
+    emit("legacy_baseline", card=card, params=LEAF * NLEAVES,
+         clients=CLIENTS, legacy_ms=legacy_ms, fold_ms=fold_ms,
+         speedup_vs_legacy=legacy_ms / fold_ms, match=match)
+    del got, want, legacy_frame, frame
+    gc_collect()
+
+
+# ---------------------------------------------------------------------------
 # phase 14: training on the card -- H2O-Danube-1.8B at full width (slice 9)
 # ---------------------------------------------------------------------------
 #: the main path's shape: the reference's train_4k sequence length
@@ -3117,7 +3251,12 @@ def phase_tcp_round(dev, card: str):
     A.LAUNCHES["weighted_sum"] = 0
     # a peer's credit window must hold half of its largest frame (the
     # server drops a peer more than one window over): 256 MB for the 200 MB
-    # payloads (the default 64 MB suits the quickstart's frames)
+    # payloads (the default 64 MB suits the quickstart's frames).  A node's
+    # socket timeout, half its PING interval, also bounds each send: at the
+    # default 0.5 s interval, 16 concurrent 200 MB uploads into one server
+    # left a node's socket undrained past 0.25 s and the nodes dropped
+    # mid-frame, again and again.  So the nodes PING every 20 s (a 10 s
+    # socket timeout) and wait 120 s, the server's value, for its PONGs
     with CountingLink("127.0.0.1", 0, poll_wait=1.0, heartbeat_timeout=120.0,
                       credits_per_peer=TCP_CREDITS) as tcp:
         host, port = tcp.address
@@ -3125,6 +3264,8 @@ def phase_tcp_round(dev, card: str):
         procs = [ctx.Process(target=run_supernode,
                              args=(host, port, s, _tcp_app),
                              kwargs=dict(run_seconds=900.0,
+                                         heartbeat_interval=20.0,
+                                         heartbeat_timeout=120.0,
                                          max_disconnected=10.0),
                              daemon=True) for s in sites]
         for p in procs:
@@ -3515,6 +3656,8 @@ def main() -> int:
     scatter = phase_sparse_fold(dev, card)
     phase_secagg_slice()
     secagg = phase_secagg_timing(dev, card)
+    example_launches = phase_examples(dev)
+    phase_legacy_baseline(dev, card)
     phase_train(dev, card)
     tcp_launches = phase_tcp_round(dev, card)
     fed = phase_federated_llm(dev, card)
@@ -3528,7 +3671,8 @@ def main() -> int:
              launches=launches, max_abs_diff=max_diff,
              launches_by_path={"slice": launches,
                                "fold": row["fold_launches"],
-                               "tcp_round": tcp_launches},
+                               "tcp_round": tcp_launches,
+                               "examples": sum(example_launches.values())},
              f32_tile=dict(f32_tile, route="cuda",
                            replaces="src/repro/kernels/agg_reduce.py:92-118,"
                                     " :174-197, :223-232",

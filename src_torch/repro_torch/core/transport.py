@@ -757,15 +757,21 @@ class TcpFleetConnection(FleetConnection):
 def run_supernode(host: str, port: int, node_id: str, client_app_factory,
                   *, run_seconds: float = 120.0,
                   heartbeat_interval: float = 0.5,
+                  heartbeat_timeout: float = 10.0,
                   max_disconnected: float = 15.0,
                   ssl_context=None) -> None:
     """Blocking SuperNode-over-TCP entry point for a child *process* (the
     multi-process CI lane spawns 16 of these).  ``client_app_factory`` is
     a picklable callable ``node_id -> ClientApp``.  Exits when the server
     goes away for ``max_disconnected`` seconds or after ``run_seconds`` —
-    a crashed parent can therefore never strand the child forever."""
+    a crashed parent can therefore never strand the child forever.  The
+    connection's socket timeout, half of ``heartbeat_interval``, also
+    bounds each send, and its PINGs wait behind its own upload: a node
+    that uploads large frames to a busy server takes a longer interval
+    and a ``heartbeat_timeout`` above it."""
     conn = TcpFleetConnection(host, port, node_id,
                               heartbeat_interval=heartbeat_interval,
+                              heartbeat_timeout=heartbeat_timeout,
                               max_disconnected=max_disconnected,
                               ssl_context=ssl_context)
     node = SuperNode(node_id, client_app_factory(node_id), conn)

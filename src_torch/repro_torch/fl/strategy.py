@@ -84,10 +84,15 @@ def _check_shapes(fp, current: NDArrays, node: str) -> None:
             f"node {node}: result shapes {got} != model shapes {want}")
 
 
-def weighted_average(results: List[Tuple[NDArrays, float]]) -> NDArrays:
-    """Weighted mean of NDArrays lists (flat fast path, legacy-exact)."""
+def weighted_average(results: List[Tuple[NDArrays, float]],
+                     backend: Optional[str] = None,
+                     device: Optional[str] = None) -> NDArrays:
+    """Weighted mean of NDArrays lists (flat fast path, legacy-exact), on
+    ``backend`` and ``device`` as :func:`kernels.weighted_mean` takes them
+    (None: the torch backend on the card)."""
     pairs = [(FlatParams.from_arrays(arrays), w) for arrays, w in results]
-    return kernels.weighted_mean(pairs, pairs[0][0].layout).to_arrays()
+    return kernels.weighted_mean(pairs, pairs[0][0].layout, backend=backend,
+                                 device=device).to_arrays()
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,7 @@ Payload dtypes: ``torch.int8`` (with ``scales`` (C, ceil(N/qchunk)) fp32),
 from __future__ import annotations
 
 import ctypes
+import threading
 import warnings
 from typing import Optional, Sequence
 
@@ -67,9 +68,12 @@ from repro_torch.fl.flat import is_bf16
 
 DEFAULT_QCHUNK = 1024
 
-#: kernel launches per wrapper; the main path's runs read these
+#: kernel launches per wrapper; the main path's runs read these.  Folds of
+#: concurrent jobs launch from several threads, so each count moves under
+#: ``_LAUNCHES_LOCK``
 LAUNCHES = {"weighted_sum": 0, "sort_reduce": 0, "gram": 0,
             "scatter_wsum": 0, "decode_rows": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 TILE_DTYPES = ("float64", "float32")
 
@@ -367,7 +371,8 @@ def _nscales(scales: Optional[torch.Tensor]) -> int:
 def _launched(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def weighted_sum(data: torch.Tensor, weights: torch.Tensor, *,
