@@ -54,7 +54,13 @@ training launcher's save and resume; and slice 14's examples: the
 paper's quickstart (Fig. 5), secure federation, hybrid tracking (Fig. 6)
 and multi-job runs through each example's ``main()`` on the card, and the
 legacy baseline: the frozen per-layer ``LegacyFedAvg`` on the host against
-the port's FedAvg fold on the card at 50M x 16, bitwise.  It also folds a
+the port's FedAvg fold on the card at 50M x 16, bitwise; and slice 15's
+launch tools: three dry-runs of the port's steps on fake process groups
+of 256 and 512 ranks on the card's device type (H2O-Danube-1.8B's
+``train_4k``, its tight FL round across two pods, DeepSeek-V2-236B's
+``decode_32k``), their roofline report, and a one-rank dry-run of the
+training configuration above, whose predicted peak is held within 5% of
+the peak the card measured.  It also folds a
 50M-parameter x 16-client round at the benchmark's geometry (FedAvg,
 then median, trimmed mean and Krum on distinct payloads), times each
 kernel at its main path's shape beside its bound (``scatter_wsum`` also
@@ -3116,6 +3122,140 @@ def phase_train(dev, card: str):
                  "remat": t_launcher - t_remat,
                  "launcher": time.perf_counter() - t_launcher},
          kernel_launches=after)
+    return dict(tcfg=tcfg, peak_bytes=peak, step_ms=step_ms,
+                model_flops=flops)
+
+
+# ---------------------------------------------------------------------------
+# slice 15: the launch tools (dry-run, analytic cost model, roofline)
+# ---------------------------------------------------------------------------
+#: the dry-run's pairs, each ``python -m repro_torch.launch.dryrun`` in a
+#: process of its own (a fake group of 256 or 512 ranks): the train step on
+#: the single pod, the tight FL round across two pods, and the decode of
+#: the model that never materialises
+DRYRUN_PAIRS = (
+    ("h2o-danube-1.8b", "train_4k", ()),
+    ("h2o-danube-1.8b", "train_4k", ("--multi-pod", "--fl-round")),
+    ("deepseek-v2-236b", "decode_32k", ()))
+#: the one-rank dry-run of phase train's configuration: its predicted peak
+#: against the peak the card measured there
+DRYRUN_PEAK_RTOL = 0.05
+DRYRUN_TIMEOUT_S = 600
+_CALIBRATE = """
+import json, sys
+from repro_torch.config import TrainConfig
+from repro_torch.launch.dryrun import run_one
+rec = run_one("h2o-danube-1.8b", "train_4k", verbose=False,
+              train_cfg=TrainConfig(**json.loads(sys.argv[1])),
+              mesh_shape=(1, 1))
+print(json.dumps(rec))
+"""
+
+
+def phase_dryrun(card: str, train: dict):
+    """Slice 15's main path: the dry-run of three pairs on fake process
+    groups (fake tensors on the card's device type: no storage, no
+    kernel), the roofline report of their records, and a one-rank dry-run
+    of phase ``train``'s exact ``TrainConfig``, whose predicted peak is
+    held to the peak the card measured there.  The four processes run at
+    once; a failed one fails the phase."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.launch.mesh import (HBM_BW, NET_BW, NVLINK_BW,
+                                         PEAK_FLOPS_BF16)
+
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src_torch"))
+    with tempfile.TemporaryDirectory() as d:
+        cmds = {}
+        for i, (arch, shape, flags) in enumerate(DRYRUN_PAIRS):
+            cmds[f"pair{i}"] = [
+                sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape, *flags,
+                "--out", os.path.join(d, f"pair{i}.jsonl")]
+        cmds["calibration"] = [sys.executable, "-c", _CALIBRATE, json.dumps(
+            dataclasses.asdict(train["tcfg"]))]
+        procs, logs = {}, {}
+        try:
+            for name, cmd in cmds.items():
+                logs[name] = open(os.path.join(d, name + ".log"), "w+")
+                procs[name] = subprocess.Popen(
+                    cmd, cwd=HERE, env=env, stdout=logs[name],
+                    stderr=subprocess.STDOUT)
+            rcs = {name: p.wait(timeout=DRYRUN_TIMEOUT_S)
+                   for name, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        out = {}
+        for name, f in logs.items():
+            f.seek(0)
+            out[name] = f.read()
+            f.close()
+        wall_s = time.perf_counter() - t0
+        for name, rc in rcs.items():
+            check(rc == 0, f"dryrun: {name} exited {rc}: "
+                           f"{out[name][-3000:]}")
+        recs = []
+        for i in range(len(DRYRUN_PAIRS)):
+            with open(os.path.join(d, f"pair{i}.jsonl")) as f:
+                recs += [json.loads(line) for line in f]
+        joined = os.path.join(d, "dryrun_results.jsonl")
+        with open(joined, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in recs)
+        report = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.roofline", "--md",
+             "--in", joined], cwd=HERE, env=env, capture_output=True,
+            text=True, timeout=120, check=True).stdout
+    check(len(recs) == len(DRYRUN_PAIRS)
+          and all(r["status"] == "ok" for r in recs),
+          f"dryrun: a pair is not ok: {[r.get('error') for r in recs]}")
+    print(report, flush=True)
+    for r in recs:
+        pd = r["per_device"]
+        emit("dryrun_pair", card=card, arch=r["arch"], shape=r["shape"],
+             mesh=r["mesh"], fl_round=r["fl_round"], devices=r["devices"],
+             device_type=r["device_type"], roofline=r["roofline"],
+             counted_flops_per_device=pd["counted_flops_raw"],
+             analytic_flops_per_device=pd["analytic_flops"],
+             analytic_hbm_bytes_per_device=pd["analytic_hbm_bytes"],
+             collective_bytes_per_device=pd["collective_bytes"],
+             peak_gb_per_device=pd["peak_bytes_est"] / 1e9,
+             fits_80GB=pd["fits_80GB"],
+             useful_flops_frac=r["useful_flops_frac"],
+             place_s=r["place_s"], trace_s=r["trace_s"],
+             sharding_fallbacks=len(r["sharding_fallbacks"]),
+             dominant=r["roofline"]["dominant"])
+    cal = json.loads(out["calibration"].strip().splitlines()[-1])
+    check(cal["status"] == "ok", f"dryrun: calibration {cal}")
+    predicted = cal["per_device"]["peak_bytes_est"]
+    peak_rel = predicted / train["peak_bytes"] - 1
+    check(abs(peak_rel) <= DRYRUN_PEAK_RTOL,
+          f"dryrun: predicted peak {predicted} vs measured "
+          f"{train['peak_bytes']}: {peak_rel:+.4f}")
+    after = _launch_counts()
+    check(after == before, f"dryrun: a kernel launched {before} -> {after}")
+    emit("dryrun", card=card, pairs=len(recs), wall_s=wall_s,
+         constants=dict(peak_flops_bf16=PEAK_FLOPS_BF16, hbm_bw=HBM_BW,
+                        net_bw=NET_BW, nvlink_bw=NVLINK_BW),
+         calibration=dict(
+             arch=cal["arch"], mesh=cal["mesh"],
+             global_batch=cal["global_batch"], seq_len=cal["seq_len"],
+             microbatches=train["tcfg"].microbatches,
+             predicted_peak_gb=predicted / 1e9,
+             measured_peak_gb=train["peak_bytes"] / 1e9,
+             peak_rel_diff=peak_rel, peak_rtol=DRYRUN_PEAK_RTOL,
+             counted_tflop=cal["per_device"]["counted_flops_raw"] / 1e12,
+             analytic_tflop=cal["per_device"]["analytic_flops"] / 1e12,
+             train_model_tflop=train["model_flops"] / 1e12,
+             roofline=cal["roofline"],
+             measured_step_s=train["step_ms"] / 1e3,
+             place_s=cal["place_s"], trace_s=cal["trace_s"]),
+         kernel_launches=after)
 
 
 # ---------------------------------------------------------------------------
@@ -3658,7 +3798,8 @@ def main() -> int:
     secagg = phase_secagg_timing(dev, card)
     example_launches = phase_examples(dev)
     phase_legacy_baseline(dev, card)
-    phase_train(dev, card)
+    train = phase_train(dev, card)
+    phase_dryrun(card, train)
     tcp_launches = phase_tcp_round(dev, card)
     fed = phase_federated_llm(dev, card)
     phase_tight_round(dev, card)

@@ -44,6 +44,7 @@ from __future__ import annotations
 import itertools
 import logging
 import os
+import select
 import socket
 import threading
 import time
@@ -456,7 +457,7 @@ class _Call:
     around so a reconnect can resend them under the same msg_id."""
 
     __slots__ = ("seq", "parts", "nbytes", "event", "resp_header",
-                 "resp_body", "failed")
+                 "resp_body", "failed", "sent_on")
 
     def __init__(self, seq: int, parts, nbytes: int):
         self.seq = seq
@@ -466,6 +467,10 @@ class _Call:
         self.resp_header: Optional[Dict[str, object]] = None
         self.resp_body: Optional[memoryview] = None
         self.failed = False
+        # the socket that carried the frame (guarded-by the send lock): a
+        # call made while the connection came up is sent once, by
+        # whichever of the caller and the resend pass gets there first
+        self.sent_on: Optional[socket.socket] = None
 
 
 class TcpFleetConnection(FleetConnection):
@@ -612,8 +617,11 @@ class TcpFleetConnection(FleetConnection):
         if sock is None:
             return               # reconnect pass will send it
         with self._send_lock:
+            if call.sent_on is sock:
+                return           # the connection's resend pass sent it
             try:
                 send_parts(sock, *call.parts)
+                call.sent_on = sock
             except OSError:
                 pass             # the run loop notices and reconnects
 
@@ -692,7 +700,11 @@ class TcpFleetConnection(FleetConnection):
         return sock
 
     def _serve(self, sock: socket.socket) -> None:
-        sock.settimeout(max(0.05, self._hb / 2))
+        # a blocking socket: a send waits for the server to drain it and
+        # never stops mid-frame; reads are polled by select, so the loop
+        # still ticks its PINGs and its silence check
+        sock.settimeout(None)
+        tick = max(0.05, self._hb / 2)
         with self._lock:
             self._sock = sock
             resend = sorted(self._pending.values(), key=lambda c: c.seq)
@@ -703,6 +715,7 @@ class TcpFleetConnection(FleetConnection):
         for call in resend:
             with self._send_lock:
                 send_parts(sock, *call.parts)
+                call.sent_on = sock
         if resend:
             log.info("%s: resent %d in-flight request(s) after reconnect",
                      self.node_id, len(resend))
@@ -717,10 +730,12 @@ class TcpFleetConnection(FleetConnection):
                 last_ping = now
                 with self._send_lock:
                     send_parts(sock, control_frame(FT_PING, {"t": now}))
-            try:
-                frames = self._reader.read_from(sock)
-            except socket.timeout:
+            # TLS may hold decrypted bytes the socket no longer shows
+            buffered = getattr(sock, "pending", None)
+            if not (buffered and buffered()) and \
+                    not select.select([sock], [], [], tick)[0]:
                 continue
+            frames = self._reader.read_from(sock)
             if frames is None:
                 raise ConnectionError("server closed the connection")
             last_rx = time.monotonic()
@@ -764,11 +779,11 @@ def run_supernode(host: str, port: int, node_id: str, client_app_factory,
     multi-process CI lane spawns 16 of these).  ``client_app_factory`` is
     a picklable callable ``node_id -> ClientApp``.  Exits when the server
     goes away for ``max_disconnected`` seconds or after ``run_seconds`` —
-    a crashed parent can therefore never strand the child forever.  The
-    connection's socket timeout, half of ``heartbeat_interval``, also
-    bounds each send, and its PINGs wait behind its own upload: a node
-    that uploads large frames to a busy server takes a longer interval
-    and a ``heartbeat_timeout`` above it."""
+    a crashed parent can therefore never strand the child forever.  A
+    send waits for the server to drain the socket, however long, and the
+    node's PINGs wait behind its own upload: a node that uploads large
+    frames to a busy server takes a ``heartbeat_timeout`` above one
+    upload."""
     conn = TcpFleetConnection(host, port, node_id,
                               heartbeat_interval=heartbeat_interval,
                               heartbeat_timeout=heartbeat_timeout,

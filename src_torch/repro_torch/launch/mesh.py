@@ -10,8 +10,14 @@
 - :func:`make_agg_mesh` is the 1-D mesh of the sharded server
   aggregation state.
 
-The H100's roofline constants come with the launch tools (ROADMAP queue
-1, item 14).
+The roofline constants (``launch/dryrun.py``, ``launch/roofline.py``) are
+one NVIDIA H100 SXM's, in place of the reference's TPU v5e ones.  The
+production meshes are laid out on DGX H100 nodes of 8 GPUs, ranks in
+mesh order: ``model`` (16 wide) spans two nodes, and ``data`` (stride 16)
+and ``pod`` (stride 256) step across nodes.  So every collective of both
+meshes crosses the network, and the roofline's collective term divides
+a device's collective bytes by its network rate, :data:`NET_BW`, not by
+its NVLink rate.
 """
 from __future__ import annotations
 
@@ -25,8 +31,19 @@ import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
 
+# NVIDIA H100 SXM, per GPU (H100 Tensor Core GPU datasheet: dense bf16
+# tensor-core rate, i.e. without sparsity; HBM3 capacity and bandwidth)
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s
+HBM_BW = 3.35e12                  # bytes/s
+HBM_PER_CHIP = 80e9               # bytes
+# links (DGX H100 user guide): NVLink 4, 900 GB/s per GPU in both
+# directions together (18 links); one ConnectX-7 400 Gb/s NIC per GPU
+NVLINK_BW = 450e9                 # bytes/s per direction per GPU
+NET_BW = 50e9                     # bytes/s per GPU (400 Gb/s)
+
 _MESH_LOCK = threading.Lock()
-_MESHES: Dict[tuple, object] = {}     # guarded-by: _MESH_LOCK
+# key -> (mesh, the default group it was built on)
+_MESHES: Dict[tuple, tuple] = {}      # guarded-by: _MESH_LOCK
 
 
 def _backend(dev: torch.device) -> str:
@@ -57,12 +74,15 @@ def _device_mesh(dev: torch.device, shape: Tuple[int, ...],
             f"rank each) and the process group has {world}")
     key = (dev.type, shape, names, world)
     with _MESH_LOCK:
-        mesh = _MESHES.get(key)
-        if mesh is None:
+        # a mesh outlives no group: after destroy_process_group and a new
+        # group (the dry-run's, one a pair), the mesh is built anew
+        group = dist.distributed_c10d._get_default_group()
+        mesh, built_on = _MESHES.get(key, (None, None))
+        if built_on is not group:
             mesh = DeviceMesh(dev.type,
                               torch.arange(need).reshape(shape).tolist(),
                               mesh_dim_names=names)
-            _MESHES[key] = mesh
+            _MESHES[key] = (mesh, group)
     return mesh
 
 

@@ -25,7 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import InputShape, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import encdec, transformer
 from repro_torch.models.base import abstract_params, axes_tree, init_params
@@ -97,6 +97,19 @@ class Model:
 
         return count(self.param_specs())
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE discounts unused experts)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if not cfg.moe.enabled:
+            return total
+        m = cfg.moe
+        n_moe_layers = cfg.num_layers - m.first_dense_layers
+        per_expert = 3 * cfg.d_model * m.d_ff
+        inactive = (n_moe_layers * (m.num_experts - m.experts_per_token)
+                    * per_expert)
+        return total - inactive
+
     # ------------------------------------------------------------- inputs
     def batch_keys(self, kind: str) -> Tuple[str, ...]:
         keys = ["tokens"]
@@ -107,6 +120,28 @@ class Model:
         if self.cfg.is_encoder_decoder and kind != "decode":
             keys.append("audio_embeds")
         return tuple(keys)
+
+    def input_struct(self, shape: InputShape) -> Dict[str, torch.Tensor]:
+        """The batch of ``shape`` on the ``meta`` device (shapes and
+        dtypes, no storage): the reference's ``ShapeDtypeStruct`` stand-ins
+        for the dry-run.  S is 1 for decode."""
+        cfg = self.cfg
+        B = shape.global_batch
+        S = 1 if shape.kind == "decode" else shape.seq_len
+
+        def meta(dims, dtype):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        out = {"tokens": meta((B, S), torch.int32)}
+        if shape.kind == "train":
+            out["labels"] = meta((B, S), torch.int32)
+        if cfg.frontend == "vision" and shape.kind != "decode":
+            out["extra_embeds"] = meta(
+                (B, cfg.num_prefix_tokens, cfg.d_model), cfg.compute_dtype)
+        if cfg.is_encoder_decoder and shape.kind != "decode":
+            out["audio_embeds"] = meta(
+                (B, cfg.encoder_seq or 1500, cfg.d_model), cfg.compute_dtype)
+        return out
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -119,12 +119,11 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         slot = (torch.remainder(pos, cache_len) if window
                 else torch.clamp(pos, max=cache_len - 1))
         bidx = torch.arange(B, device=x.device)
-        new_k = cache["k"].clone()
-        new_v = cache["v"].clone()
-        new_sp = cache["slot_pos"].clone()
-        new_k[bidx, slot] = k[:, 0]
-        new_v[bidx, slot] = v[:, 0]
-        new_sp[bidx, slot] = pos.to(new_sp.dtype)
+        # out of place: DTensor has no in-place rule for a sharded cache
+        new_k = cache["k"].index_put((bidx, slot), k[:, 0])
+        new_v = cache["v"].index_put((bidx, slot), v[:, 0])
+        new_sp = cache["slot_pos"].index_put(
+            (bidx, slot), pos.to(cache["slot_pos"].dtype))
         ctx = attention_impl.decode_attention(
             q, new_k, new_v, slot_pos=new_sp, query_pos=pos, window=window)
         new_cache = {"k": new_k, "v": new_v, "slot_pos": new_sp}
@@ -278,12 +277,10 @@ def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         cache_len = cache["ckv"].shape[1]
         slot = torch.clamp(pos, max=cache_len - 1)
         bidx = torch.arange(B, device=x.device)
-        ckv_c = cache["ckv"].clone()
-        kpe_c = cache["kpe"].clone()
-        sp = cache["slot_pos"].clone()
-        ckv_c[bidx, slot] = ckv[:, 0]
-        kpe_c[bidx, slot] = kpe[:, 0]
-        sp[bidx, slot] = pos.to(sp.dtype)
+        ckv_c = cache["ckv"].index_put((bidx, slot), ckv[:, 0])
+        kpe_c = cache["kpe"].index_put((bidx, slot), kpe[:, 0])
+        sp = cache["slot_pos"].index_put(
+            (bidx, slot), pos.to(cache["slot_pos"].dtype))
         # absorbed decode: q'_h = W_UK_h^T q_nope_h  (B,H,rank)
         q_abs = torch.einsum("bnh,rnh->bnr", q_nope[:, 0],
                              params["wuk"].to(dt))

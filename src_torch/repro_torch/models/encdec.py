@@ -35,7 +35,7 @@ from repro_torch.models.base import (ParamSpec, apply_norm, index_layer,
                                      map_specs, norm_spec,
                                      sinusoidal_positions, stack_layers,
                                      unbind_layers)
-from repro_torch.sharding import constrain_batch, constrain_logits
+from repro_torch.sharding import constrain_batch, constrain_logits, gather_dim
 
 
 def _sqrt_hd(hd: int, dtype: torch.dtype) -> torch.Tensor:
@@ -204,8 +204,12 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, mode: str,
     decode mode); audio_embeds: (B, frames, d), for train and prefill."""
     B, S = tokens.shape
     dev = params["embed"].device
-    # gather, then cast: the same values as the reference's cast-then-gather
-    x = constrain_batch(params["embed"][tokens].to(cfg.compute_dtype))
+    # gather, then cast: the same values as the reference's cast-then-gather.
+    # An embedding op, whose backward DTensor can place (an indexing's is
+    # an accumulating index_put), from a table whole along the vocab: a
+    # vocab-split table's masked lookup loses the batch split of the ids
+    x = constrain_batch(torch.nn.functional.embedding(
+        tokens, gather_dim(params["embed"], 0)).to(cfg.compute_dtype))
     L = cfg.num_layers
 
     if mode == "decode":

@@ -33,7 +33,8 @@ from repro_torch.models import attention, mlp, recurrent
 from repro_torch.models.base import (ParamSpec, apply_norm, index_layer,
                                      map_specs, norm_spec, stack_layers,
                                      unbind_layers)
-from repro_torch.sharding import cast_weight, constrain_batch, constrain_logits
+from repro_torch.sharding import (cast_weight, constrain_batch,
+                                  constrain_logits, gather_dim)
 
 
 def _needs_mlp(cfg: ModelConfig, kind: str) -> bool:
@@ -192,8 +193,12 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, mode: str,
     n_pre, P, n_periods, n_rem, kinds = _grouping(cfg)
     B, S = tokens.shape
     dev = params["embed"].device
-    # gather, then cast: the same values as the reference's cast-then-gather
-    x = constrain_batch(params["embed"][tokens].to(cfg.compute_dtype))
+    # gather, then cast: the same values as the reference's cast-then-gather.
+    # An embedding op, whose backward DTensor can place (an indexing's is
+    # an accumulating index_put), from a table whole along the vocab: a
+    # vocab-split table's masked lookup loses the batch split of the ids
+    x = constrain_batch(torch.nn.functional.embedding(
+        tokens, gather_dim(params["embed"], 0)).to(cfg.compute_dtype))
     n_prefix = 0
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)

@@ -82,7 +82,9 @@ def mesh_axis_names(mesh) -> Tuple[str, ...]:
 
 
 def _mesh_axis_sizes(mesh) -> Dict[str, int]:
-    shape = (tuple(mesh.mesh.shape) if hasattr(mesh, "mesh_dim_names")
+    # a DeviceMesh's ``shape`` is plain ints: its ``mesh`` tensor is built
+    # by tensor ops, which a fake-tensor trace refuses on a real tensor
+    shape = (tuple(mesh.shape) if hasattr(mesh, "mesh_dim_names")
              else tuple(mesh.devices.shape))
     return dict(zip(mesh_axis_names(mesh), shape))
 

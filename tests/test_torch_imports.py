@@ -43,7 +43,9 @@ EXPECTED = ("repro_torch.fl.agg_kernels", "repro_torch.kernels.agg_reduce",
             "repro_torch.configs.flower_quickstart",
             "repro_torch.core.flowcontrol", "repro_torch.core.transport",
             "repro_torch.core.collective", "repro_torch.launch.shardings",
-            "repro_torch.sharding", "repro_torch.examples.federated_llm")
+            "repro_torch.sharding", "repro_torch.examples.federated_llm",
+            "repro_torch.launch.analytic", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline")
 
 
 def test_importing_every_module_loads_no_reference_dependency():

@@ -544,6 +544,73 @@ def test_tcp_client_timeout_surfaces_as_request_timeout():
         conn.close()
 
 
+@pytest.mark.tcp
+def test_tcp_node_send_waits_for_an_undrained_socket():
+    """A server that leaves a node's socket undrained for 20x the node's
+    read poll (half its 0.1 s PING interval) still receives the node's
+    16 MB upload whole, on the first connection: the send waits for the
+    socket to drain instead of timing out mid-frame."""
+    lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    # a small receive window (inherited by the accepted socket), so the
+    # node's send fills the buffers and blocks
+    lsock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 64 << 10)
+    lsock.bind(("127.0.0.1", 0))
+    lsock.listen(4)
+    lsock.settimeout(JOIN_S)
+    host, port = lsock.getsockname()
+    payload = np.random.default_rng(0).integers(
+        0, 256, 16 << 20, dtype=np.uint8).tobytes()
+    conn = TcpFleetConnection(host, port, "slow-drain",
+                              heartbeat_interval=0.1,
+                              heartbeat_timeout=JOIN_S,
+                              request_timeout=JOIN_S)
+    sock = None
+    try:
+        sock, _ = lsock.accept()
+        sock.settimeout(0.2)
+        reader = FrameReader()
+        (ftype, hello), = _drain_frames(reader, sock)
+        assert ftype == FT_HELLO
+        send_parts(sock, control_frame(FT_WELCOME, {
+            "credits": 64 << 20, "limit": 64 << 20, "hb": JOIN_S}))
+        # the node's first PING: its connection is up
+        (ftype, _), = _drain_frames(reader, sock)
+        assert ftype == FT_PING
+        errors = []
+
+        def push():
+            try:
+                conn.push_result("tid-1", payload)
+            except Exception as e:  # noqa: BLE001 -- asserted below
+                errors.append(e)
+
+        t = threading.Thread(target=push)
+        t.start()
+        time.sleep(1.0)            # undrained: the old send timeout x 20
+        req = None
+        deadline = time.monotonic() + JOIN_S
+        while req is None and time.monotonic() < deadline:
+            for ftype, frame in _drain_frames(reader, sock, deadline=1.0):
+                if ftype == FT_REQ:
+                    req = split_data(frame)
+        assert req is not None, "the upload never arrived whole"
+        header, body = req
+        assert header["m"] == "push_task_res" and header["id"] == "tid-1"
+        assert bytes(body) == payload
+        send_parts(sock, *data_frame_parts(FT_RES, {"i": header["i"]}, b""))
+        t.join(timeout=JOIN_S)
+        assert not t.is_alive() and errors == []
+        # no reconnect: the node never came back through the listener
+        lsock.settimeout(0.5)
+        with pytest.raises(socket.timeout):
+            lsock.accept()
+    finally:
+        conn.close()
+        if sock is not None:
+            sock.close()
+        lsock.close()
+
+
 # ------------------------------------------------- full-app equivalence
 QS_SITES = ["site-1", "site-2", "site-3"]
 
