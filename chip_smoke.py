@@ -3131,12 +3131,15 @@ def phase_train(dev, card: str):
 # ---------------------------------------------------------------------------
 #: the dry-run's pairs, each ``python -m repro_torch.launch.dryrun`` in a
 #: process of its own (a fake group of 256 or 512 ranks): the train step on
-#: the single pod, the tight FL round across two pods, and the decode of
-#: the model that never materialises
+#: the single pod, the tight FL round across two pods, the decode of the
+#: model that never materialises, and RecurrentGemma's decode, whose gates
+#: cut through heads on "model" (the card's torch refused the partial sum
+#: that left before their bias)
 DRYRUN_PAIRS = (
     ("h2o-danube-1.8b", "train_4k", ()),
     ("h2o-danube-1.8b", "train_4k", ("--multi-pod", "--fl-round")),
-    ("deepseek-v2-236b", "decode_32k", ()))
+    ("deepseek-v2-236b", "decode_32k", ()),
+    ("recurrentgemma-2b", "decode_32k", ()))
 #: the one-rank dry-run of phase train's configuration: its predicted peak
 #: against the peak the card measured there
 DRYRUN_PEAK_RTOL = 0.05
@@ -3153,11 +3156,11 @@ print(json.dumps(rec))
 
 
 def phase_dryrun(card: str, train: dict):
-    """Slice 15's main path: the dry-run of three pairs on fake process
+    """Slice 15's main path: the dry-run of four pairs on fake process
     groups (fake tensors on the card's device type: no storage, no
     kernel), the roofline report of their records, and a one-rank dry-run
     of phase ``train``'s exact ``TrainConfig``, whose predicted peak is
-    held to the peak the card measured there.  The four processes run at
+    held to the peak the card measured there.  The five processes run at
     once; a failed one fails the phase."""
     import dataclasses
     import tempfile

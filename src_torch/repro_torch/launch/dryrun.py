@@ -26,6 +26,12 @@ halving of f32 collective bytes in ``adjusted_collective_total``) -- the
 trace carries the card's dtypes; and a donated state's alias bytes -- the
 port's train step keeps its input state, so its peak holds both.
 
+A pair whose model runs the sLSTM's sequential loop over more than
+:data:`SLSTM_TRACE_STEPS` steps (xLSTM's train and prefill shapes) is
+traced twice, its loop cut to each count, and its FLOPs, collective bytes
+and peak are extrapolated to the whole sequence; its record says so
+(``"scaled": {"slstm_steps": [traced, S]}``).
+
 A process has one default process group, so the dry-run refuses to
 start where one exists (``make_local_mesh`` starts one, for example).
 
@@ -52,8 +58,8 @@ import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import sharding as shlib
-from repro_torch.config import (INPUT_SHAPES, InputShape, TrainConfig,
-                                get_model_config, list_archs,
+from repro_torch.config import (INPUT_SHAPES, SLSTM, InputShape,
+                                TrainConfig, get_model_config, list_archs,
                                 shape_supported)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.mesh import (HBM_BW, HBM_PER_CHIP, NET_BW,
@@ -68,6 +74,13 @@ from repro_torch.utils.pytree import tree_leaves, tree_map
 MICROBATCHES = {"deepseek-v2-236b": 4, "recurrentgemma-2b": 2}
 #: local steps of a ``--fl-round``
 FL_LOCAL_STEPS = 4
+#: the sLSTM steps a pair traces of a longer sequence: the step is traced
+#: twice, its loop cut to each count, and its FLOPs, collective bytes and
+#: peak extrapolated to the whole sequence from the two (the loop is the
+#: same plain ops every step, and keeps the same bytes a step for the
+#: backward), as the reference multiplies a scan body's costs by its trip
+#: count
+SLSTM_TRACE_STEPS = (16, 32)
 
 # the process-group and functional collectives by the reference's HLO names
 # (and broadcast, scatter, gather, reduce by theirs)
@@ -214,6 +227,54 @@ def _views_may_reshard():
             else:
                 prop.op_to_schema_info[op] = info
         prop.propagate_op_sharding.cache_clear()
+
+
+@contextlib.contextmanager
+def _slstm_steps(n: int):
+    """The sLSTM's loop (``models/recurrent.py``) runs the first ``n`` steps
+    of a longer sequence; its output is padded back to the whole length."""
+    from repro_torch.models import recurrent
+
+    scan = recurrent._slstm_scan
+
+    def cut(params, xg, state, cfg):
+        S = xg["z"].shape[1]
+        if S <= n:
+            return scan(params, xg, state, cfg)
+        hs, state = scan(params, {g: v[:, :n] for g, v in xg.items()},
+                         state, cfg)
+        return torch.nn.functional.pad(hs, (0, 0, 0, S - n)), state
+
+    recurrent._slstm_scan = cut
+    try:
+        yield
+    finally:
+        recurrent._slstm_scan = scan
+
+
+def _trace_slstm_scaled(fn, args, shardings, device: torch.device,
+                        S: int) -> Dict[str, Any]:
+    """:func:`trace_step` with the sLSTM loop cut to each of
+    :data:`SLSTM_TRACE_STEPS`, its counts and peak extrapolated to ``S``
+    steps."""
+    a, b = SLSTM_TRACE_STEPS
+    with _slstm_steps(a):
+        short = trace_step(fn, args, shardings, device)
+    with _slstm_steps(b):
+        rec = trace_step(fn, args, shardings, device)
+    k = (S - b) / (b - a)
+    for key in ("counted_flops_raw", "peak_bytes_est"):
+        rec[key] += k * (rec[key] - short[key])
+    rec["peak_bytes_est"] = int(rec["peak_bytes_est"])
+    coll = rec["collective_bytes"]
+    for name in set(coll) | set(short["collective_bytes"]):
+        got = coll.get(name, 0.0)
+        coll[name] = got + k * (got - short["collective_bytes"].get(name, 0))
+    rec["collective_bytes"] = dict(sorted(coll.items()))
+    rec["place_s"] = round(short["place_s"] + rec["place_s"], 1)
+    rec["trace_s"] = round(short["trace_s"] + rec["trace_s"], 1)
+    rec["scaled"] = {"slstm_steps": [b, S]}
+    return rec
 
 
 def roofline_terms(flops: float, hbm_bytes: float,
@@ -494,7 +555,12 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
         fn, args, shardings = build_step(arch, shape, mesh,
                                          fl_round=fl_round,
                                          train_cfg=train_cfg)
-        counted = trace_step(fn, args, shardings, dev, fake=True)
+        if (SLSTM in cfg.layer_kinds and shape.kind != "decode"
+                and shape.seq_len > SLSTM_TRACE_STEPS[1]):
+            counted = _trace_slstm_scaled(fn, args, shardings, dev,
+                                          shape.seq_len)
+        else:
+            counted = trace_step(fn, args, shardings, dev, fake=True)
     except Exception as e:  # noqa: BLE001 -- one pair's failure is its record
         rec["status"] = "FAILED"
         rec["error"] = f"{type(e).__name__}: {e}"[:2000]
@@ -551,6 +617,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
         "sharding_fallbacks": {k: list(v)
                                for k, v in shlib.FALLBACKS.items()},
     })
+    if "scaled" in counted:
+        rec["scaled"] = counted["scaled"]
     if verbose:
         uf = rec["useful_flops_frac"]
         print(f"[{arch} x {shape_name} x {rec['mesh']}"

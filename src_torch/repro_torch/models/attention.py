@@ -27,7 +27,9 @@ from repro_torch.config import ATTN, LOCAL_ATTN, MLA, SWA, ModelConfig
 from repro_torch.models import attention_impl
 from repro_torch.models.base import (ParamSpec, apply_norm, apply_rope,
                                      norm_spec)
-from repro_torch.sharding import cast_weight, constrain_heads
+from repro_torch.sharding import (batch_axes, batch_spec, cast_weight,
+                                  constrain_heads, from_local, model_dim,
+                                  to_local)
 
 
 def specs(cfg: ModelConfig) -> Dict:
@@ -76,9 +78,23 @@ def _qk_normalize(params, q, k, cfg):
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dnh->bsnh") as one matrix product."""
+    """einsum("bsd,dnh->bsnh") as one matrix product.
+
+    On a residual stream whose sequence is split over "model", each rank
+    projects its own tokens with the whole weight: the output keeps the
+    sequence split, which the attention takes over to its layout
+    (``attention_impl``).  DTensor would gather the tokens instead, for
+    each of q, k and v, and project all of them on every rank where the
+    heads do not split."""
     B, S, _ = x.shape
     d, n, h = w.shape
+    if model_dim(x) == 1:
+        spec = batch_spec(x.shape, 1)
+        xl = to_local(x, spec)
+        wl = to_local(w, (None,) * 3, partial_grad=batch_axes() + ("model",))
+        b, s = xl.shape[0], xl.shape[1]
+        out = (xl.reshape(b * s, d) @ wl.reshape(d, n * h)).view(b, s, n, h)
+        return from_local(out, (B, S, n, h), spec + (None,))
     return (x.reshape(B * S, d) @ w.reshape(d, n * h)).view(B, S, n, h)
 
 

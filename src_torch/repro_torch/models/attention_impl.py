@@ -25,7 +25,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.sharding import constrain_scores, model_axis_size
+from repro_torch.sharding import (batch_spec, constrain_scores, from_local,
+                                  gather_seq, model_axis_size, model_dim,
+                                  model_max, model_rank, model_sharded,
+                                  model_sum, seq_to_heads, to_local)
 
 IMPLS = ("eager", "flash")
 
@@ -45,7 +48,10 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,S,H,hd) (pre-scaled), k/v: (B,S,KV,hd); returns (B,S,H,hd_v).
 
     The eager path processes queries in chunks so the score matrix
-    materializes as (B,KV,g,chunk,S) instead of (B,KV,g,S,S)."""
+    materializes as (B,KV,g,chunk,S) instead of (B,KV,g,S,S).  On
+    DTensors under a "model" axis it runs on the rank's shards in the
+    reference's layout (its ``constrain_scores``): the heads split over
+    the axis (:func:`_head_local`), else the keys (:func:`_key_split`)."""
     if impl == "flash":
         from repro_torch.kernels.flash_attention import flash_attention
 
@@ -59,32 +65,120 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # the kv-head count does not: each model shard then owns its heads'
     # scores, at the cost of replicating the small (B,S,KV,hd) K/V
     msz = model_axis_size()
-    if msz > 1 and g > 1 and H % msz == 0 and KV % msz != 0:
+    expand = msz > 1 and g > 1 and H % msz == 0 and KV % msz != 0
+    if model_sharded(q):
+        if KV % msz == 0 or expand:
+            return _head_local(q, k, v, g if expand else 1, window=window,
+                               causal=causal, chunk=chunk)
+        if S % msz == 0:
+            return _key_split(q, k, v, window=window, causal=causal,
+                              chunk=chunk)
+    if expand:
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
-        KV, g = H, 1
-    qg = q.reshape(B, S, KV, g, hd)
+    return _attend(q, k, v, window=window, causal=causal, chunk=chunk,
+                   constrain=constrain_scores)
+
+
+def _mask(C: int, start: int, kpos: torch.Tensor, causal: bool,
+          window: int) -> torch.Tensor:
+    """(C, Sk): which keys at positions ``kpos`` (1, Sk) the queries
+    ``start..start+C`` see."""
+    qpos = start + torch.arange(C, device=kpos.device)[:, None]
+    mask = torch.ones((C, kpos.shape[-1]), dtype=torch.bool,
+                      device=kpos.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _attend(q, k, v, *, window: int, causal: bool, chunk: int,
+            constrain=None) -> torch.Tensor:
+    """The chunked einsum + masked softmax over whole sequences (on one
+    card, or on a rank's heads); ``constrain`` pins the scores' layout."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
     C = chunk_size(S, chunk)
     # the reference's preferred_element_type=float32: fp32 products, no
     # rounding of the scores to the input dtype
     k32 = k.float()
     kpos = torch.arange(S, device=q.device)[None, :]
+    pin = constrain or (lambda x: x)
     ctx = []
     for start in range(0, S, C):
         q_chunk = qg[:, start:start + C].float()
-        scores = constrain_scores(
-            torch.einsum("bqkgh,bskh->bkgqs", q_chunk, k32))
-        qpos = start + torch.arange(C, device=q.device)[:, None]
-        mask = torch.ones((C, S), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= kpos <= qpos
-        if window:
-            mask &= kpos > qpos - window
-        scores = constrain_scores(torch.where(mask, scores, NEG_INF))
+        scores = pin(torch.einsum("bqkgh,bskh->bkgqs", q_chunk, k32))
+        mask = _mask(C, start, kpos, causal, window)
+        scores = pin(torch.where(mask, scores, NEG_INF))
         w = torch.softmax(scores, dim=-1).to(q.dtype)
         del scores
         ctx.append(torch.einsum("bkgqs,bskh->bqkgh", w, v))
     return torch.cat(ctx, dim=1).reshape(B, S, H, v.shape[-1])
+
+
+def _heads(x, g: int) -> torch.Tensor:
+    """The rank's shard of (B, S, N, hd) DTensor ``x`` with its heads
+    (each repeated ``g`` times first) split over "model" and the batch over
+    the batch axes.  A sequence split over "model" (the residual stream's)
+    goes over to the heads by one all-to-all; heads already split stay."""
+    if model_dim(x) == 1:
+        t = to_local(x, batch_spec(x.shape, 1))
+        if g > 1:
+            t = torch.repeat_interleave(t, g, dim=2)
+        return seq_to_heads(t)
+    if g > 1:
+        x = torch.repeat_interleave(x, g, dim=2)
+    return to_local(x, batch_spec(x.shape, 2))
+
+
+def _head_local(q, k, v, g: int, *, window: int, causal: bool,
+                chunk: int):
+    """The reference's first layout under a "model" axis: each rank
+    attends with its own heads (the kv heads after a GQA -> MHA expansion
+    by ``g``), with no collective on the scores.  ctx comes back split
+    over the heads, as ``wo``'s product takes it."""
+    B, S, H, _ = q.shape
+    ctx = _attend(_heads(q, 1), _heads(k, g), _heads(v, g), window=window,
+                  causal=causal, chunk=chunk)
+    return from_local(ctx, (B, S, H, v.shape[-1]), batch_spec(q.shape, 2))
+
+
+def _key_split(q, k, v, *, window: int, causal: bool, chunk: int):
+    """The reference's second layout, where the heads do not split over
+    "model": the keys do (flash-decoding style).  Every rank holds every
+    query, scores its own keys, and the softmax's row max and row sum and
+    the partial value products are reduced over "model"; no score-shaped
+    tensor is gathered."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    ql = gather_seq(to_local(q, batch_spec(q.shape, 1)))
+    kl = to_local(k, batch_spec(k.shape, 1))
+    vl = to_local(v, batch_spec(v.shape, 1))
+    b, s = kl.shape[0], kl.shape[1]
+    qg = ql.reshape(b, S, KV, H // KV, hd)
+    C = chunk_size(S, chunk)
+    k32 = kl.float()
+    kpos = model_rank() * s + torch.arange(s, device=ql.device)[None, :]
+    ctx = []
+    for start in range(0, S, C):
+        q_chunk = qg[:, start:start + C].float()
+        scores = torch.einsum("bqkgh,bskh->bkgqs", q_chunk, k32)
+        mask = _mask(C, start, kpos, causal, window)
+        scores = torch.where(mask, scores, NEG_INF)
+        p = torch.exp(scores - model_max(
+            torch.amax(scores, dim=-1, keepdim=True)))
+        del scores
+        # each rank's weights use the total: their gradients add up
+        den = model_sum(torch.sum(p, dim=-1, keepdim=True), sum_grads=True)
+        w = (p / den).to(q.dtype)
+        del p
+        ctx.append(torch.einsum("bkgqs,bskh->bqkgh", w, vl))
+    ctx = model_sum(torch.cat(ctx, dim=1), sum_grads=False)
+    return from_local(ctx.reshape(b, S, H, vl.shape[-1]),
+                      (B, S, H, v.shape[-1]), batch_spec(q.shape))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

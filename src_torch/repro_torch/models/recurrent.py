@@ -41,7 +41,9 @@ import torch.utils.checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.models.attention_impl import chunk_size
 from repro_torch.models.base import ParamSpec, activation
-from repro_torch.sharding import cast_weight
+from repro_torch.sharding import (batch_axes, batch_spec, cast_weight,
+                                  from_local, gather_dim, model_axis_size,
+                                  model_sharded, on_mesh, to_local)
 
 RGLRU_C = 8.0
 
@@ -56,11 +58,27 @@ def _block_diag_spec(heads: int, width: int) -> ParamSpec:
 
 def _block_diag_apply(w: torch.Tensor, x: torch.Tensor, heads: int
                       ) -> torch.Tensor:
-    """x: (..., width) -> block-diagonal linear per head."""
+    """x: (..., width) -> block-diagonal linear per head.
+
+    Under a "model" axis whose size does not divide the heads, a width
+    split over it cuts through heads, and the product over the split
+    reshape would leave a pending partial sum (which torch 2.11 cannot add
+    a bias to): the width is gathered first and the product, whole on
+    every rank, taken back to the input's split (a local slice).  Heads
+    that divide the axis keep their split through the reshape."""
     per = w.shape[-1]
+    back = None
+    if model_sharded(x) and heads % model_axis_size() != 0:
+        from torch.distributed.tensor import Replicate, Shard
+
+        back = [p if isinstance(p, Shard) else Replicate()
+                for p in x.placements]
+        x, w = gather_dim(x, -1), gather_dim(w, 0)
     xh = x.reshape(x.shape[:-1] + (heads, per))
-    y = torch.einsum("...hi,hij->...hj", xh, w.to(x.dtype))
-    return y.reshape(x.shape)
+    y = torch.einsum("...hi,hij->...hj", xh, w.to(x.dtype)).reshape(x.shape)
+    if back is not None:
+        y = y.redistribute(y.device_mesh, back)
+    return y
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -266,7 +284,21 @@ def _mlstm_chunk(start: int, Fq, qc, F_all, i_raw, k32, v32):
     sc = torch.einsum("bqnh,bknh->bqkn", qc, k32) * D
     del D
     norm = torch.maximum(torch.abs(sc.sum(2)), torch.exp(-mrow))
+    if on_mesh(sc):
+        # DTensor's einsum views the permuted local shard, which a
+        # non-contiguous one refuses (a query chunk split over "model")
+        sc = sc.contiguous()
     return torch.einsum("bqkn,bknh->bqnh", sc, v32) / norm[..., None]
+
+
+def _cumsum_seq(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum`` along the sequence (dim 1).  A DTensor's runs on
+    the rank's shard with the sequence whole: its backward flips, and
+    torch 2.11's DTensor has no rule for ``flip``."""
+    if not on_mesh(x):
+        return torch.cumsum(x, dim=1)
+    spec = batch_spec(x.shape)
+    return from_local(torch.cumsum(to_local(x, spec), dim=1), x.shape, spec)
 
 
 def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
@@ -317,7 +349,7 @@ def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         # reference chunks it: (B,Cq,S,H) fp32 tensors per chunk, each
         # chunk recomputed in the backward pass (the reference's
         # jax.checkpoint of its chunk body)
-        F_all = torch.cumsum(logf, dim=1)                # (B,S,H)
+        F_all = _cumsum_seq(logf)                        # (B,S,H)
         q32, k32, v32 = q.float(), k.float(), v.float()
         Cq = chunk_size(S)
         remat = torch.is_grad_enabled() and Cq < S
@@ -353,6 +385,8 @@ def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
 # sLSTM (xLSTM) -- scalar memory, sequential recurrence
 # ===========================================================================
 SLSTM_GATES = ("z", "i", "f", "o")
+#: the sLSTM's recurrent state (c, n, m, h) in its cache
+SLSTM_STATE = ("sc", "sn", "sm", "sh")
 
 
 def slstm_specs(cfg: ModelConfig) -> Dict:
@@ -409,6 +443,39 @@ def _slstm_cell(params, x_t: Dict[str, torch.Tensor], state, cfg: ModelConfig):
     return (c1, n1, m1, h1)
 
 
+def _slstm_scan(params, xg: Dict[str, torch.Tensor], state, cfg: ModelConfig):
+    """The reference's lax.scan over S (decode: S == 1): every step's h
+    as (B,S,d), and the last state."""
+    steps = []
+    for t in range(xg["z"].shape[1]):
+        state = _slstm_cell(params, {g: xg[g][:, t] for g in xg}, state, cfg)
+        steps.append(state[3])
+    return torch.stack(steps, dim=1), state
+
+
+def _slstm_scan_local(params, xg: Dict[str, torch.Tensor],
+                      cache: Optional[Dict], cfg: ModelConfig):
+    """:func:`_slstm_scan` of DTensors on the rank's shards: the batch over
+    the batch axes and all else whole (a head count need not divide
+    "model"), the recurrent weights whole, so that no step of the loop
+    dispatches a DTensor op.  One redistribution each way."""
+    B, S, d = xg["z"].shape
+    spec = batch_spec((B, S, d))
+    local = {g: to_local(v, spec) for g, v in xg.items()}
+    weights = {k: to_local(params[k], (None,) * params[k].ndim,
+                           partial_grad=batch_axes())
+               for g in SLSTM_GATES for k in (f"r_{g}", f"b_{g}")}
+    if cache is not None:
+        state = tuple(to_local(cache[k], batch_spec(cache[k].shape))
+                      for k in SLSTM_STATE)
+    else:
+        b = local["z"].shape[0]
+        state = tuple(slstm_init_cache(cfg, b, local["z"].device).values())
+    hs, state = _slstm_scan(weights, local, state, cfg)
+    return (from_local(hs, (B, S, d), spec),
+            tuple(from_local(t, (B, d), batch_spec((B, d))) for t in state))
+
+
 def slstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 cache: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -418,22 +485,17 @@ def slstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     xg = {g: (x @ cast_weight(params[f"w_{g}"], x.dtype, ("embed", "mlp")))
           .float() for g in SLSTM_GATES}
 
-    if cache is not None:
-        state = (cache["sc"], cache["sn"], cache["sm"], cache["sh"])
-    else:
-        state = tuple(slstm_init_cache(cfg, B, x.device).values())
-
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
-    # the reference's lax.scan over S (decode: S == 1)
-    steps = []
-    for t in range(S):
-        state = _slstm_cell(params, {g: xg[g][:, t] for g in xg}, state, cfg)
-        steps.append(state[3])
-    hs = torch.stack(steps, dim=1)                       # (B,S,d)
+    if on_mesh(x):
+        hs, state = _slstm_scan_local(params, xg, cache, cfg)
+    else:
+        state = (tuple(cache[k] for k in SLSTM_STATE) if cache is not None
+                 else tuple(slstm_init_cache(cfg, B, x.device).values()))
+        hs, state = _slstm_scan(params, xg, state, cfg)
     new_cache = None
     if mode != "train":
-        new_cache = dict(zip(("sc", "sn", "sm", "sh"), state))
+        new_cache = dict(zip(SLSTM_STATE, state))
 
     y = _groupnorm_heads(hs.reshape(B, -1, H, d // H),
                          params["gn_scale"]).reshape(B, -1, d).to(x.dtype)

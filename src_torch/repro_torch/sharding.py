@@ -394,6 +394,204 @@ def model_axis_size() -> int:
 
 
 # ---------------------------------------------------------------------------
+# Local regions of the sharded step
+# ---------------------------------------------------------------------------
+# Where DTensor's own placement of an op loses the reference's layout (the
+# eager attention and its projections of the sequence-split residual, the
+# cross-entropy over a split vocab, the recurrences' sequential parts),
+# the step places the operands itself, runs plain torch ops on the rank's
+# shards, and joins the result back as a DTensor.  The collectives between
+# shards are the functional ones DTensor lowers to, called on the local
+# tensors with their gradients written out.
+def on_mesh(x) -> bool:
+    """Whether ``x`` is a DTensor under an activation mesh."""
+    from torch.distributed.tensor import DTensor
+
+    return _ACT_MESH[0] is not None and isinstance(x, DTensor)
+
+
+def model_sharded(x) -> bool:
+    """Whether ``x`` is a DTensor under an activation mesh whose "model"
+    axis has more than one rank."""
+    return on_mesh(x) and model_axis_size() > 1
+
+
+def batch_spec(shape: Sequence[int], model_dim: Optional[int] = None
+               ) -> Spec:
+    """Dim 0 over the batch axes where their product divides it,
+    ``model_dim`` over "model" (None: whole), every other dim whole."""
+    mesh, baxes = _ACT_MESH[0], _ACT_MESH[1]
+    sizes = _mesh_axis_sizes(mesh)
+    entries: list = [None] * len(shape)
+    if baxes and shape[0] % _batch_prod(sizes, baxes) == 0:
+        entries[0] = _axes_entry(baxes)
+    if model_dim is not None:
+        entries[model_dim % len(shape)] = "model"
+    return tuple(entries)
+
+
+def to_local(x, spec: Spec, partial_grad: Sequence[str] = ()
+             ) -> torch.Tensor:
+    """The rank's shard of the DTensor ``x`` placed by ``spec`` on the
+    activation mesh (redistributed by DTensor where it lies otherwise).
+    Its gradient comes back in the same placements, except as a partial
+    sum over the mesh axes of ``partial_grad`` that ``spec`` leaves whole:
+    a weight read whole by work split over them."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = _ACT_MESH[0]
+    want = placements_for(mesh, spec)
+    if list(x.placements) != want:
+        x = x.redistribute(mesh, want)
+    grad = [Partial() if name in partial_grad and p == Replicate() else p
+            for name, p in zip(mesh_axis_names(mesh), want)]
+    return _DenseGrad.apply(x.to_local(grad_placements=grad))
+
+
+class _DenseGrad(torch.autograd.Function):
+    """Identity whose gradient leaves contiguous: DTensor takes a local
+    gradient back into ops that view it (an einsum's gradient may be a
+    transposed one)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def from_local(t: torch.Tensor, shape: Sequence[int], spec: Spec):
+    """The DTensor of global ``shape`` whose rank's shard, placed by
+    ``spec`` on the activation mesh, is ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = _ACT_MESH[0]
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.insert(0, acc)
+        acc *= n
+    return DTensor.from_local(t, mesh, placements_for(mesh, spec),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The activation mesh's batch axes."""
+    return _ACT_MESH[1]
+
+
+def model_dim(x) -> Optional[int]:
+    """The dim of DTensor ``x`` that the activation mesh's "model" axis
+    splits (None: none, or not a DTensor under a "model" axis)."""
+    from torch.distributed.tensor import Shard
+
+    if not model_sharded(x):
+        return None
+    p = x.placements[mesh_axis_names(x.device_mesh).index("model")]
+    return p.dim if isinstance(p, Shard) else None
+
+
+def model_rank() -> int:
+    """This rank's coordinate on the activation mesh's "model" axis."""
+    return _ACT_MESH[0].get_local_rank("model")
+
+
+def _model_group() -> str:
+    return _ACT_MESH[0].get_group("model").group_name
+
+
+_FC = torch.ops._c10d_functional
+
+
+def _all_reduce(x: torch.Tensor, op: str, group: str) -> torch.Tensor:
+    return _FC.wait_tensor(_FC.all_reduce(x.contiguous(), op, group))
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over "model"; the backward sums the gradients too where each
+    rank's use of the total is its own share (``sum_grads``), and passes
+    them on where every rank holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, sum_grads):
+        ctx.group, ctx.sum_grads = group, sum_grads
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grads:
+            g = _all_reduce(g, "sum", ctx.group)
+        return g, None, None
+
+
+def model_sum(x: torch.Tensor, sum_grads: bool) -> torch.Tensor:
+    """All-reduce of the local ``x`` over "model" (see :class:`_AllReduce`
+    for ``sum_grads``)."""
+    return _AllReduce.apply(x, _model_group(), sum_grads)
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The max of the local ``x`` over "model", outside autograd (a
+    softmax's shift, whose gradient is zero)."""
+    return _all_reduce(x.detach(), "max", _model_group())
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all of dim 0's equal chunks over a group; its own backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(x: torch.Tensor, group: str) -> torch.Tensor:
+    splits = [1] * x.shape[0]
+    return _FC.wait_tensor(_FC.all_to_all_single(x.contiguous(), splits,
+                                                 splits, group))
+
+
+def seq_to_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S/m, N, hd) local shards of a sequence split over "model" ->
+    (B, S, N/m, hd) shards of the heads: one all-to-all (Megatron's
+    sequence-to-head exchange), where DTensor would gather on the CPU."""
+    m = model_axis_size()
+    B, s, N, hd = t.shape
+    x = t.reshape(B, s, m, N // m, hd).permute(2, 0, 1, 3, 4)
+    y = _AllToAll.apply(x, _model_group())            # (m, B, s, N/m, hd)
+    return y.permute(1, 0, 2, 3, 4).reshape(B, m * s, N // m, hd)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather of dim 0 over a group; the backward reduce-scatters."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.group, ctx.size = group, size
+        return _FC.wait_tensor(_FC.all_gather_into_tensor(x.contiguous(),
+                                                          size, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _FC.wait_tensor(_FC.reduce_scatter_tensor(
+            g.contiguous(), "sum", ctx.size, ctx.group)), None, None
+
+
+def gather_seq(t: torch.Tensor) -> torch.Tensor:
+    """(B, S/m, ...) local shards of a sequence split over "model" -> the
+    whole (B, S, ...) on every rank."""
+    m = model_axis_size()
+    y = _GatherSeq.apply(t.movedim(1, 0), _model_group(), m)
+    return y.movedim(0, 1)
+
+
+# ---------------------------------------------------------------------------
 # Server aggregation-state sharding (FL side)
 # ---------------------------------------------------------------------------
 def shard_bounds(total: int, num_shards: int,

@@ -27,7 +27,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.api import Model
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.optimizers import clip_by_global_norm
-from repro_torch.sharding import gather_dim
+from repro_torch.sharding import (batch_spec, from_local, gather_dim,
+                                  model_dim, model_max, model_rank,
+                                  model_sharded, model_sum, to_local)
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -47,9 +49,12 @@ def cross_entropy_loss(logits, labels, z_loss: float = 0.0):
     The gold logit is gathered; the reference contracts with a one-hot
     instead (a gather across its sharded vocab dim would replicate the
     logits).  Both give the same value for finite logits: the pad columns
-    hold -1e30, and -1e30 x 0 is -0.  A vocab-sharded DTensor is gathered
-    along the vocab first: DTensor has no rule for a gather across a split
-    dim."""
+    hold -1e30, and -1e30 x 0 is -0.  Logits whose vocab is split over a
+    "model" axis stay split (:func:`_vocab_split_cross_entropy`); another
+    DTensor is gathered along the vocab first: DTensor has no rule for a
+    gather across a split dim."""
+    if model_dim(logits) == logits.ndim - 1 and model_sharded(labels):
+        return _vocab_split_cross_entropy(logits, labels, z_loss)
     logits = gather_dim(logits.float(), -1)
     labels = torch.as_tensor(labels, device=logits.device).long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -57,6 +62,29 @@ def cross_entropy_loss(logits, labels, z_loss: float = 0.0):
     ce = torch.mean(logz - gold)
     if z_loss:
         ce = ce + z_loss * torch.mean(torch.square(logz))
+    return ce
+
+
+def _vocab_split_cross_entropy(logits, labels, z_loss: float):
+    """The CE of DTensor logits whose vocab is split over "model", on the
+    rank's vocab shard: the logsumexp and the gold logit from local max,
+    sum and pick, of which only the (B, S) partials are all-reduced."""
+    B, S, _ = logits.shape
+    lg = to_local(logits, batch_spec(logits.shape, -1)).float()
+    lab = to_local(labels, batch_spec(labels.shape)).long()
+    mx = model_max(torch.amax(lg, dim=-1))
+    logz = torch.log(model_sum(torch.sum(torch.exp(lg - mx[..., None]),
+                                         dim=-1), sum_grads=False)) + mx
+    Vl = lg.shape[-1]
+    idx = lab - model_rank() * Vl
+    mine = (idx >= 0) & (idx < Vl)
+    gold = torch.gather(lg, -1, idx.clamp(0, Vl - 1)[..., None])[..., 0]
+    gold = model_sum(torch.where(mine, gold, 0.0), sum_grads=False)
+    spec = batch_spec((B, S))
+    ce = torch.mean(from_local(logz - gold, (B, S), spec))
+    if z_loss:
+        ce = ce + z_loss * torch.mean(torch.square(
+            from_local(logz, (B, S), spec)))
     return ce
 
 

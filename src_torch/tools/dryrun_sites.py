@@ -3,8 +3,11 @@
 process group), each collective's bytes charged to the port's innermost
 call sites (``file:line``, the last three frames in ``repro_torch``).
 ``--layers`` cuts the depth; ``--mesh`` picks the mesh (default 16x16);
-``--device cpu`` traces CPU tensors.  Prints the record's per-device
-totals, then the top sites by bytes.  Run from the root of a checkout:
+``--device cpu`` traces CPU tensors; ``--forward-sites`` charges a
+backward pass's collective to the forward call site whose autograd node
+runs it (autograd's anomaly mode records those stacks; slower), marked
+``bwd``.  Prints the record's per-device totals, then the top sites by
+bytes.  Run from the root of a checkout:
 
     python3 src_torch/tools/dryrun_sites.py --arch h2o-danube-1.8b --layers 2 --device cpu
     python3 src_torch/tools/dryrun_sites.py --arch deepseek-v2-236b --shape decode_32k
@@ -13,11 +16,65 @@ import argparse
 import collections
 import json
 import os
+import re
 import sys
 import traceback
 
+import torch
+
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
+
+
+def _site(frames) -> str:
+    return " < ".join(f"{f.filename.rsplit('repro_torch/')[-1]}:{f.lineno}"
+                      for f in frames[-3:][::-1])
+
+
+def trace_sites(arch: str, shape: str, *, mesh_shape=(16, 16), device=None,
+                forward_sites: bool = False, train_cfg=None):
+    """``(record, calls)``: the pair's dry-run record and, per collective
+    the trace runs, ``(name, site, bytes)`` with the site as
+    :func:`main` prints it.  The configuration is
+    ``repro_torch.launch.dryrun.get_model_config``'s (patch it to cut
+    the model)."""
+    from repro_torch.launch import dryrun
+
+    calls = []
+
+    def where_from() -> str:
+        stack, mark = traceback.extract_stack(), ""
+        node = forward_sites and torch._C._current_autograd_node()
+        if node:
+            # the stack anomaly mode kept when the forward made this node
+            made = "".join(node.metadata.get("traceback_", []))
+            stack = [traceback.FrameSummary(f, int(n), "") for f, n in
+                     re.findall(r'File "([^"]+)", line (\d+)', made)]
+            mark = "bwd "
+        return mark + _site([f for f in stack if "repro_torch" in f.filename
+                             and f.filename != dryrun.__file__])
+
+    class SiteBytes(dryrun.CollectiveBytes):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            before = dict(self.bytes)
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            for name, total in self.bytes.items():
+                added = total - before.get(name, 0.0)
+                if added:
+                    calls.append((name, where_from(), added))
+            return out
+
+    saved = dryrun.CollectiveBytes
+    dryrun.CollectiveBytes = SiteBytes
+    try:
+        with torch.autograd.set_detect_anomaly(forward_sites,
+                                               check_nan=False):
+            rec = dryrun.run_one(arch, shape, device=device, verbose=False,
+                                 mesh_shape=tuple(mesh_shape),
+                                 train_cfg=train_cfg)
+    finally:
+        dryrun.CollectiveBytes = saved
+    return rec, calls
 
 
 def main(argv=None) -> None:
@@ -31,34 +88,19 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", default="16x16")
     ap.add_argument("--device", default=None)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--forward-sites", action="store_true")
     args = ap.parse_args(argv)
-
-    sites = collections.Counter()
-
-    class SiteBytes(dryrun.CollectiveBytes):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            before = dict(self.bytes)
-            out = super().__torch_dispatch__(func, types, args, kwargs)
-            for name, total in self.bytes.items():
-                added = total - before.get(name, 0.0)
-                if added:
-                    frames = [f for f in traceback.extract_stack()
-                              if "repro_torch" in f.filename
-                              and f.filename != dryrun.__file__]
-                    where = " < ".join(
-                        f"{f.filename.rsplit('repro_torch/')[-1]}:{f.lineno}"
-                        for f in frames[-3:][::-1])
-                    sites[(name, where)] += added
-            return out
 
     if args.layers is not None:
         dryrun.get_model_config = lambda a: get_model_config(a).replace(
             num_layers=args.layers)
-    dryrun.CollectiveBytes = SiteBytes
-    rec = dryrun.run_one(args.arch, args.shape, device=args.device,
-                         verbose=False,
-                         mesh_shape=tuple(int(n) for n in
-                                          args.mesh.split("x")))
+    rec, calls = trace_sites(
+        args.arch, args.shape, device=args.device,
+        forward_sites=args.forward_sites,
+        mesh_shape=tuple(int(n) for n in args.mesh.split("x")))
+    sites = collections.Counter()
+    for name, where, nbytes in calls:
+        sites[(name, where)] += nbytes
     print(json.dumps({k: rec.get(k) for k in ("arch", "shape", "mesh",
                                               "status", "error", "where",
                                               "per_device", "trace_s")}))
