@@ -3132,14 +3132,23 @@ def phase_train(dev, card: str):
 #: the dry-run's pairs, each ``python -m repro_torch.launch.dryrun`` in a
 #: process of its own (a fake group of 256 or 512 ranks): the train step on
 #: the single pod, the tight FL round across two pods, the decode of the
-#: model that never materialises, and RecurrentGemma's decode, whose gates
+#: model that never materialises, RecurrentGemma's decode, whose gates
 #: cut through heads on "model" (the card's torch refused the partial sum
-#: that left before their bias)
+#: that left before their bias), Qwen3's decode on its sequence-split KV
+#: cache (written and read on each rank's own shard; gathered whole before,
+#: it did not fit) and xLSTM's prefill, whose mLSTM runs on local shards
+#: (DTensor replicated it over "model" on the card's torch before)
 DRYRUN_PAIRS = (
     ("h2o-danube-1.8b", "train_4k", ()),
     ("h2o-danube-1.8b", "train_4k", ("--multi-pod", "--fl-round")),
     ("deepseek-v2-236b", "decode_32k", ()),
-    ("recurrentgemma-2b", "decode_32k", ()))
+    ("recurrentgemma-2b", "decode_32k", ()),
+    ("qwen3-32b", "decode_32k", ()),
+    ("xlstm-350m", "prefill_32k", ()))
+#: xLSTM's counted FLOPs a device at most this many times its analytic
+#: count (the parallel form computes every key of a query's chunk, the
+#: analytic count the causal half)
+DRYRUN_XLSTM_FLOPS_MAX = 2.5
 #: the one-rank dry-run of phase train's configuration: its predicted peak
 #: against the peak the card measured there
 DRYRUN_PEAK_RTOL = 0.05
@@ -3156,12 +3165,14 @@ print(json.dumps(rec))
 
 
 def phase_dryrun(card: str, train: dict):
-    """Slice 15's main path: the dry-run of four pairs on fake process
-    groups (fake tensors on the card's device type: no storage, no
+    """Slice 15's main path: the dry-run of :data:`DRYRUN_PAIRS` on fake
+    process groups (fake tensors on the card's device type: no storage, no
     kernel), the roofline report of their records, and a one-rank dry-run
     of phase ``train``'s exact ``TrainConfig``, whose predicted peak is
-    held to the peak the card measured there.  The five processes run at
-    once; a failed one fails the phase."""
+    held to the peak the card measured there.  The processes run at once;
+    a failed one fails the phase, as does a decode pair that does not fit
+    80 GB or an xLSTM pair that counts more than
+    :data:`DRYRUN_XLSTM_FLOPS_MAX` times its analytic FLOPs."""
     import dataclasses
     import tempfile
 
@@ -3218,6 +3229,17 @@ def phase_dryrun(card: str, train: dict):
           and all(r["status"] == "ok" for r in recs),
           f"dryrun: a pair is not ok: {[r.get('error') for r in recs]}")
     print(report, flush=True)
+    for r in recs:
+        pd = r["per_device"]
+        check(r["shape"] not in ("decode_32k", "long_500k")
+              or pd["fits_80GB"],
+              f"dryrun: {r['arch']} {r['shape']} does not fit 80 GB: "
+              f"{pd['peak_bytes_est'] / 1e9:.2f} GB")
+        ratio = pd["counted_flops_raw"] / pd["analytic_flops"]
+        check(not r["arch"].startswith("xlstm")
+              or ratio <= DRYRUN_XLSTM_FLOPS_MAX,
+              f"dryrun: {r['arch']} {r['shape']} counts {ratio:.2f}x its "
+              f"analytic FLOPs")
     for r in recs:
         pd = r["per_device"]
         emit("dryrun_pair", card=card, arch=r["arch"], shape=r["shape"],

@@ -29,7 +29,7 @@ from repro_torch.models.base import (ParamSpec, apply_norm, apply_rope,
                                      norm_spec)
 from repro_torch.sharding import (batch_axes, batch_spec, cast_weight,
                                   constrain_heads, from_local, model_dim,
-                                  to_local)
+                                  model_rank, to_local)
 
 
 def specs(cfg: ModelConfig) -> Dict:
@@ -130,25 +130,99 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                                                  max_len=max_len)
     elif mode == "decode":   # S == 1
         assert cache is not None
-        cache_len = cache["k"].shape[1]
         pos = positions[:, 0] if positions.dim() == 2 else positions  # (B,)
-        slot = (torch.remainder(pos, cache_len) if window
-                else torch.clamp(pos, max=cache_len - 1))
-        bidx = torch.arange(B, device=x.device)
-        # out of place: DTensor has no in-place rule for a sharded cache
-        new_k = cache["k"].index_put((bidx, slot), k[:, 0])
-        new_v = cache["v"].index_put((bidx, slot), v[:, 0])
-        new_sp = cache["slot_pos"].index_put(
-            (bidx, slot), pos.to(cache["slot_pos"].dtype))
-        ctx = attention_impl.decode_attention(
-            q, new_k, new_v, slot_pos=new_sp, query_pos=pos, window=window)
-        new_cache = {"k": new_k, "v": new_v, "slot_pos": new_sp}
+        if model_dim(cache["k"]) == 1:
+            ctx, new_cache = _decode_seq_split(q, {"k": k, "v": v}, cache,
+                                               pos, window)
+        else:
+            cache_len = cache["k"].shape[1]
+            slot = (torch.remainder(pos, cache_len) if window
+                    else torch.clamp(pos, max=cache_len - 1))
+            bidx = torch.arange(B, device=x.device)
+            # out of place: DTensor has no in-place rule for a sharded cache
+            new_k = cache["k"].index_put((bidx, slot), k[:, 0])
+            new_v = cache["v"].index_put((bidx, slot), v[:, 0])
+            new_sp = cache["slot_pos"].index_put(
+                (bidx, slot), pos.to(cache["slot_pos"].dtype))
+            ctx = attention_impl.decode_attention(
+                q, new_k, new_v, slot_pos=new_sp, query_pos=pos,
+                window=window)
+            new_cache = {"k": new_k, "v": new_v, "slot_pos": new_sp}
     else:
         raise ValueError(mode)
 
     wo = cast_weight(params["wo"], x.dtype, ("heads", "head_dim", "embed"))
     y = ctx.reshape(B * S, H * hd) @ wo.reshape(H * hd, d)
     return y.view(B, S, d), new_cache
+
+
+def _token_local(t: torch.Tensor) -> torch.Tensor:
+    """The rank's batch rows of the one-token DTensor ``t``, whole along
+    every other dim: a split over the heads is gathered, a pending sum
+    reduced, once a step (a token's q, k or v is small)."""
+    return to_local(t, batch_spec(t.shape))
+
+
+def _write_own_shard(shards: Dict, token: Dict, slot: torch.Tensor
+                     ) -> Dict:
+    """The reference's ``cache.at[bidx, slot].set(token)`` on the rank's
+    local shards of a cache whose sequence (dim 1) is split over "model":
+    ``shards`` (b, s, ...) and ``token`` (b, ...) by leaf name, ``slot``
+    (b,) global.  A rank writes only the rows whose slot lies in its range
+    (the others keep their value) and nothing is gathered, as GSPMD keeps
+    the reference's write local.  Out of place, as the plain path."""
+    out = {}
+    for name, t in shards.items():
+        s = t.shape[1]
+        lo = model_rank() * s
+        at = torch.clamp(slot - lo, 0, s - 1)
+        bidx = torch.arange(t.shape[0], device=t.device)
+        new = token[name].to(t.dtype)
+        own = ((slot >= lo) & (slot < lo + s)).view(
+            (-1,) + (1,) * (new.ndim - 1))
+        out[name] = t.index_put((bidx, at),
+                                torch.where(own, new, t[bidx, at]))
+    return out
+
+
+def _split_cache_step(cache: Dict, token: Dict, pos: torch.Tensor,
+                      window: int):
+    """The write of a decode step on a sequence-split cache: ``token`` the
+    step's entries (B,1,...) by leaf name, ``slot_pos`` aside.  Returns
+    ``(shards, pos_l, new_cache)``: the rank's new shards of every leaf
+    (``slot_pos`` included), its batch rows of ``pos``, and the new cache
+    as DTensors split as ``cache`` came.  The slot is the plain path's:
+    ``pos % len`` in a rotating window, else ``min(pos, len - 1)``."""
+    cache_len = next(iter(cache.values())).shape[1]
+    pos_l = _token_local(pos)
+    slot = (torch.remainder(pos_l, cache_len) if window
+            else torch.clamp(pos_l, max=cache_len - 1))
+    specs = {n: batch_spec(t.shape, 1) for n, t in cache.items()}
+    token = {n: _token_local(t[:, 0]) for n, t in token.items()}
+    token["slot_pos"] = pos_l
+    shards = _write_own_shard(
+        {n: to_local(t, specs[n]) for n, t in cache.items()}, token, slot)
+    return shards, pos_l, {n: from_local(t, cache[n].shape, specs[n])
+                           for n, t in shards.items()}
+
+
+def _decode_seq_split(q, token: Dict, cache: Dict, pos: torch.Tensor,
+                      window: int):
+    """A decode step's attention on a cache whose sequence is split over
+    "model" (``rules_for_shape``'s decode rule, as the reference's
+    ``decode_32k``, whose GQA kv counts do not divide the axis): each rank
+    writes the token into its own shard and attends over its own slots
+    (``attention_impl.decode_attention_split``); the query's heads are
+    gathered once.  A split over "data" (``long_500k``'s) takes the plain
+    path.  ``token``: the step's k and v (B,1,KV,hd).  Returns ctx, whole
+    over "model", and the new cache, split as it came."""
+    shards, pos_l, new_cache = _split_cache_step(cache, token, pos, window)
+    ctx = attention_impl.decode_attention_split(
+        _token_local(q), shards["k"], shards["v"],
+        slot_pos=shards["slot_pos"], query_pos=pos_l, window=window)
+    B, _, H, _ = q.shape
+    shape = (B, 1, H, ctx.shape[-1])
+    return from_local(ctx, shape, batch_spec(shape)), new_cache
 
 
 def _fill_cache_from_prefill(cfg, k, v, positions, kind,
@@ -290,32 +364,64 @@ def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     elif mode == "decode":
         assert cache is not None
         pos = positions[:, 0] if positions.dim() == 2 else positions
-        cache_len = cache["ckv"].shape[1]
-        slot = torch.clamp(pos, max=cache_len - 1)
-        bidx = torch.arange(B, device=x.device)
-        ckv_c = cache["ckv"].index_put((bidx, slot), ckv[:, 0])
-        kpe_c = cache["kpe"].index_put((bidx, slot), kpe[:, 0])
-        sp = cache["slot_pos"].index_put(
-            (bidx, slot), pos.to(cache["slot_pos"].dtype))
         # absorbed decode: q'_h = W_UK_h^T q_nope_h  (B,H,rank)
         q_abs = torch.einsum("bnh,rnh->bnr", q_nope[:, 0],
                              params["wuk"].to(dt))
-        # fp32 products and sums, as preferred_element_type=float32
-        scores = (torch.einsum("bnr,bsr->bns", q_abs.float(), ckv_c.float())
-                  + torch.einsum("bnh,bsh->bns", q_pe[:, 0].float(),
-                                 kpe_c.float())) \
-            * scale.float()
-        mask = (sp >= 0) & (sp <= pos[:, None])           # (B, S)
-        scores = torch.where(mask[:, None, :], scores, -torch.inf)
-        w = torch.softmax(scores, dim=-1).to(dt)
-        # attend in latent space
-        ctx_lat = torch.einsum("bns,bsr->bnr", w, ckv_c)
+        if model_dim(cache["ckv"]) == 1:
+            ctx_lat, new_cache = _mla_decode_seq_split(
+                q_abs, q_pe[:, 0], {"ckv": ckv, "kpe": kpe}, cache, pos,
+                scale)
+        else:
+            cache_len = cache["ckv"].shape[1]
+            slot = torch.clamp(pos, max=cache_len - 1)
+            bidx = torch.arange(B, device=x.device)
+            ckv_c = cache["ckv"].index_put((bidx, slot), ckv[:, 0])
+            kpe_c = cache["kpe"].index_put((bidx, slot), kpe[:, 0])
+            sp = cache["slot_pos"].index_put(
+                (bidx, slot), pos.to(cache["slot_pos"].dtype))
+            scores = _mla_scores(q_abs, q_pe[:, 0], ckv_c, kpe_c, sp, pos,
+                                 scale)
+            w = torch.softmax(scores, dim=-1).to(dt)
+            # attend in latent space
+            ctx_lat = torch.einsum("bns,bsr->bnr", w, ckv_c)
+            new_cache = {"ckv": ckv_c, "kpe": kpe_c, "slot_pos": sp}
         ctx = torch.einsum("bnr,rnh->bnh", ctx_lat, params["wuv"].to(dt))
         ctx = ctx[:, None]                                 # (B,1,H,vdim)
-        new_cache = {"ckv": ckv_c, "kpe": kpe_c, "slot_pos": sp}
     else:
         raise ValueError(mode)
 
     vdim = ctx.shape[-1]
     y = ctx.reshape(B * S, H * vdim) @ params["wo"].to(dt).reshape(H * vdim, d)
     return y.view(B, S, d), new_cache
+
+
+def _mla_scores(q_abs, q_pe, ckv, kpe, slot_pos, pos, scale):
+    """The absorbed scores (B,H,S) of one query against the latent cache,
+    fp32 products and sums (the reference's
+    ``preferred_element_type=float32``), empty and future slots masked."""
+    scores = (torch.einsum("bnr,bsr->bns", q_abs.float(), ckv.float())
+              + torch.einsum("bnh,bsh->bns", q_pe.float(), kpe.float())) \
+        * scale.float()
+    mask = (slot_pos >= 0) & (slot_pos <= pos[:, None])   # (B, S)
+    return torch.where(mask[:, None, :], scores, -torch.inf)
+
+
+def _mla_decode_seq_split(q_abs, q_pe, token: Dict, cache: Dict,
+                          pos: torch.Tensor, scale):
+    """MLA's absorbed decode on a latent cache whose sequence is split over
+    "model" (:func:`_decode_seq_split`'s layout): each rank writes the
+    token's ``ckv`` / ``kpe`` into its own shard, scores its own slots and
+    takes its share of the latent context, combined over the axis
+    (``attention_impl.split_softmax_combine``).  ``q_abs`` (B,H,rank) and
+    ``q_pe`` (B,H,rope) are gathered once.  Returns the latent context
+    (B,H,rank) in q's dtype, whole over "model", and the new cache."""
+    shards, pos_l, new_cache = _split_cache_step(cache, token, pos,
+                                                 window=0)
+    qa = _token_local(q_abs)
+    ckv32 = shards["ckv"].float()
+    scores = _mla_scores(qa, _token_local(q_pe), shards["ckv"],
+                         shards["kpe"], shards["slot_pos"], pos_l, scale)
+    ctx = attention_impl.split_softmax_combine(
+        scores, lambda p: torch.einsum("bns,bsr->bnr", p, ckv32))
+    return (from_local(ctx.to(qa.dtype), q_abs.shape,
+                       batch_spec(q_abs.shape)), new_cache)

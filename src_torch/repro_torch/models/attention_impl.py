@@ -18,7 +18,8 @@ kernels of a model's prefill.
 
 Both satisfy the same contract and are cross-checked in the tests and on
 the card.  :func:`decode_attention` is plain torch: the reference computes
-it outside any Pallas kernel too.
+it outside any Pallas kernel too; :func:`decode_attention_split` is its
+flash-decoding form over a cache whose slots are split over "model".
 """
 from __future__ import annotations
 
@@ -189,15 +190,52 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q: (B,1,H,hd) pre-scaled; k/v_cache: (B,S,KV,hd); slot_pos: (B,S)
     absolute position held in each slot (-1 = empty); query_pos: (B,).
     """
+    scores = _decode_scores(q, k_cache, slot_pos, query_pos, window)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    ctx = torch.einsum("bkgs,bskh->bkgh", w, v_cache)
+    return ctx.reshape(q.shape[0], 1, q.shape[2], v_cache.shape[-1])
+
+
+def _decode_scores(q, k_cache, slot_pos, query_pos, window: int):
+    """(B,KV,g,S) fp32 scores of one query against the cache's slots, the
+    empty ones, the future ones and those out of the window masked."""
     B, _, H, hd = q.shape
     KV = k_cache.shape[2]
-    g = H // KV
-    qg = q[:, 0].reshape(B, KV, g, hd)
+    qg = q[:, 0].reshape(B, KV, H // KV, hd)
     scores = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float())
     valid = (slot_pos >= 0) & (slot_pos <= query_pos[:, None])
     if window:
         valid &= slot_pos > (query_pos[:, None] - window)
-    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
-    ctx = torch.einsum("bkgs,bskh->bkgh", w, v_cache)
-    return ctx.reshape(B, 1, H, v_cache.shape[-1])
+    return torch.where(valid[:, None, None, :], scores, NEG_INF)
+
+
+def split_softmax_combine(scores: torch.Tensor, product) -> torch.Tensor:
+    """The softmax of the fp32 ``scores`` (..., s) over keys split across
+    "model" (the last dim holds this rank's), applied by ``product(p)`` to
+    the rank's values: the row max through ``model_max``, then the
+    unnormalised product and the exp-sum, in fp32, summed over "model" in
+    one all-reduce, then the division (flash-decoding's combine).  A rank
+    whose keys are all masked adds zeros."""
+    p = torch.exp(scores - model_max(torch.amax(scores, dim=-1,
+                                                keepdim=True)))
+    acc = model_sum(torch.cat([product(p), p.sum(-1)[..., None]], dim=-1),
+                    sum_grads=False)
+    return acc[..., :-1] / acc[..., -1:]
+
+
+def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, *, slot_pos: torch.Tensor,
+                           query_pos: torch.Tensor, window: int = 0
+                           ) -> torch.Tensor:
+    """:func:`decode_attention` on local tensors, where the cache's slots
+    are split over "model": q (B,1,H,hd) whole on every rank, k/v_cache
+    (B,s,KV,hd) and slot_pos (B,s) the rank's own slots.  Each rank scores
+    its slots (fp32) and the softmax is combined over the axis
+    (:func:`split_softmax_combine`); no cache-sized tensor moves.  Returns
+    the whole (B,1,H,hd_v) on every rank, cast to q's dtype."""
+    scores = _decode_scores(q, k_cache, slot_pos, query_pos, window)
+    v32 = v_cache.float()
+    ctx = split_softmax_combine(
+        scores, lambda p: torch.einsum("bkgs,bskh->bkgh", p, v32))
+    return ctx.to(q.dtype).reshape(q.shape[0], 1, q.shape[2],
+                                   v_cache.shape[-1])

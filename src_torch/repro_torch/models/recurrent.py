@@ -42,8 +42,10 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.attention_impl import chunk_size
 from repro_torch.models.base import ParamSpec, activation
 from repro_torch.sharding import (batch_axes, batch_spec, cast_weight,
-                                  from_local, gather_dim, model_axis_size,
-                                  model_sharded, on_mesh, to_local)
+                                  from_local, gather_dim, gather_seq,
+                                  model_axis_size, model_dim, model_max,
+                                  model_rank, model_sharded, model_sum,
+                                  on_mesh, to_local)
 
 RGLRU_C = 8.0
 
@@ -301,33 +303,73 @@ def _cumsum_seq(x: torch.Tensor) -> torch.Tensor:
     return from_local(torch.cumsum(to_local(x, spec), dim=1), x.shape, spec)
 
 
+def _mlstm_weights(params, dtype: torch.dtype) -> Dict:
+    """The block's weights as its products take them: the matrices cast to
+    the compute ``dtype`` (model-axis-only copies under a mesh), the conv,
+    biases and scales as they are (cast where they are used)."""
+    heads = ("mlp", "heads", "head_dim")
+    axes = {"w_up": ("embed", "mlp"), "wq": heads, "wk": heads,
+            "wv": heads, "w_if": ("mlp", "heads"), "w_down": ("mlp", "embed")}
+    return {k: (cast_weight(v, dtype, axes[k]) if k in axes else v)
+            for k, v in params.items()}
+
+
+def _mlstm_inputs(w: Dict, xm: torch.Tensor, H: int, conv_state):
+    """The causal conv of the up-projection's first half ``xm`` and the q /
+    k / v and gate projections: ``(xc, q, k, v, i_raw, logf, new_conv)``,
+    the gates fp32."""
+    B, S, di = xm.shape
+    dk = di // H
+    xc, new_conv = _causal_conv(xm, w["conv_w"], w["conv_b"], conv_state)
+    xc = F.silu(xc)
+    # the reference divides by a weakly typed scalar: rounded to x's dtype
+    rdk = torch.tensor(math.sqrt(dk), dtype=torch.float32).to(xm.dtype)
+    q = (xc @ w["wq"].reshape(di, di)).view(B, S, H, dk) / rdk
+    k = (xc @ w["wk"].reshape(di, di)).view(B, S, H, dk) / rdk
+    v = (xm @ w["wv"].reshape(di, di)).view(B, S, H, dk)
+    if_gates = (xc @ w["w_if"] + w["b_if"].to(xm.dtype)).float()
+    i_raw, f_raw = torch.chunk(if_gates, 2, dim=-1)      # (B,S,H)
+    return xc, q, k, v, i_raw, _log_sigmoid(f_raw), new_conv
+
+
+def _mlstm_rows(start: int, Fq, q32, F_all, i_raw, k32, v32):
+    """Query rows ``start..start+len(Fq)`` of the stabilised parallel form
+    against all of ``F_all`` / ``i_raw`` / ``k32`` / ``v32``, chunked over
+    the rows as the reference chunks its queries: (B,Cq,S,H) fp32 tensors
+    per chunk, each chunk recomputed in the backward pass (the reference's
+    jax.checkpoint of its chunk body)."""
+    S, n = F_all.shape[1], Fq.shape[1]
+    Cq = chunk_size(n)
+    remat = torch.is_grad_enabled() and Cq < S
+    parts = []
+    for c in range(0, n, Cq):
+        args = (start + c, Fq[:, c:c + Cq], q32[:, c:c + Cq], F_all, i_raw,
+                k32, v32)
+        parts.append(torch.utils.checkpoint.checkpoint(
+            _mlstm_chunk, *args, use_reentrant=False) if remat
+            else _mlstm_chunk(*args))
+    return torch.cat(parts, dim=1)
+
+
+def _mlstm_out(w: Dict, h, xc, z, dtype: torch.dtype):
+    """Head norm, the learnable skip, the output gate and the down
+    projection of the cell's output h (B,S,H,dk)."""
+    B, S = xc.shape[:2]
+    h = _groupnorm_heads(h, w["gn_scale"]).reshape(B, S, -1).to(dtype)
+    h = h + w["skip_scale"].to(dtype) * xc
+    return (h * F.silu(z)) @ w["w_down"]
+
+
 def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 cache: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    B, S, d = x.shape
+    if mode in ("train", "prefill") and _mlstm_splits(x, cfg):
+        return _mlstm_apply_split(params, x, cfg, mode=mode, cache=cache)
     H = cfg.num_heads
-    up = x @ cast_weight(params["w_up"], x.dtype, ("embed", "mlp"))
-    xm, z = torch.chunk(up, 2, dim=-1)                   # (B,S,di) each
-    di = xm.shape[-1]
-    dk = di // H
+    w = _mlstm_weights(params, x.dtype)
+    xm, z = torch.chunk(x @ w["w_up"], 2, dim=-1)        # (B,S,di) each
     conv_state = cache["conv"] if cache is not None else None
-    xc, new_conv = _causal_conv(xm, params["conv_w"], params["conv_b"],
-                                conv_state)
-    xc = F.silu(xc)
-
-    # the reference divides by a weakly typed scalar: rounded to x's dtype
-    rdk = torch.tensor(math.sqrt(dk), dtype=torch.float32).to(x.dtype)
-    axes = ("mlp", "heads", "head_dim")
-    wq = cast_weight(params["wq"], x.dtype, axes).reshape(di, di)
-    wk = cast_weight(params["wk"], x.dtype, axes).reshape(di, di)
-    wv = cast_weight(params["wv"], x.dtype, axes).reshape(di, di)
-    q = (xc @ wq).view(B, S, H, dk) / rdk
-    k = (xc @ wk).view(B, S, H, dk) / rdk
-    v = (xm @ wv).view(B, S, H, dk)
-    if_gates = (xc @ cast_weight(params["w_if"], x.dtype, ("mlp", "heads"))
-                + params["b_if"].to(x.dtype)).float()
-    i_raw, f_raw = torch.chunk(if_gates, 2, dim=-1)      # (B,S,H)
-    logf = _log_sigmoid(f_raw)
+    xc, q, k, v, i_raw, logf, new_conv = _mlstm_inputs(w, xm, H, conv_state)
 
     if mode == "decode":
         C0, n0, m0 = cache["C"], cache["n"], cache["m"]
@@ -345,40 +387,118 @@ def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         h = (num / den)[:, None]                         # (B,1,H,dk)
         new_cache = {"C": C1, "n": n1, "m": m1, "conv": new_conv}
     elif mode in ("train", "prefill"):
-        # the stabilised parallel form, chunked over queries as the
-        # reference chunks it: (B,Cq,S,H) fp32 tensors per chunk, each
-        # chunk recomputed in the backward pass (the reference's
-        # jax.checkpoint of its chunk body)
         F_all = _cumsum_seq(logf)                        # (B,S,H)
-        q32, k32, v32 = q.float(), k.float(), v.float()
-        Cq = chunk_size(S)
-        remat = torch.is_grad_enabled() and Cq < S
-        parts = []
-        for start in range(0, S, Cq):
-            args = (start, F_all[:, start:start + Cq],
-                    q32[:, start:start + Cq], F_all, i_raw, k32, v32)
-            parts.append(torch.utils.checkpoint.checkpoint(
-                _mlstm_chunk, *args, use_reentrant=False) if remat
-                else _mlstm_chunk(*args))
-        h = torch.cat(parts, dim=1)
+        k32, v32 = k.float(), v.float()
+        h = _mlstm_rows(0, F_all, q.float(), F_all, i_raw, k32, v32)
         new_cache = None
         if mode == "prefill":
             # the final recurrent state, for decode to continue from
-            w = F_all[:, -1:, :] - F_all + i_raw         # (B,S,H)
-            ms = torch.amax(w, dim=1)                    # (B,H)
-            wexp = torch.exp(w - ms[:, None, :])
+            wl = F_all[:, -1:, :] - F_all + i_raw        # (B,S,H)
+            ms = torch.amax(wl, dim=1)                   # (B,H)
+            wexp = torch.exp(wl - ms[:, None, :])
             Cf = torch.einsum("bsn,bsnk,bsnv->bnkv", wexp, k32, v32)
             nf = torch.einsum("bsn,bsnk->bnk", wexp, k32)
             new_cache = {"C": Cf, "n": nf, "m": ms, "conv": new_conv}
     else:
         raise ValueError(mode)
+    return _mlstm_out(w, h, xc, z, x.dtype), new_cache
 
-    h = _groupnorm_heads(h, params["gn_scale"]).reshape(B, -1, di) \
-        .to(x.dtype)
-    h = h + params["skip_scale"].to(x.dtype) * xc
-    y = h * F.silu(z)
-    return y @ cast_weight(params["w_down"], x.dtype, ("mlp", "embed")), \
-        new_cache
+
+def _mlstm_splits(x: torch.Tensor, cfg: ModelConfig) -> bool:
+    """Whether the block runs on local shards: a residual stream whose
+    sequence is split over "model" with at least a conv halo of tokens a
+    rank."""
+    return (model_dim(x) == 1
+            and x.shape[1] // model_axis_size() >= cfg.conv_width - 1)
+
+
+def _mlstm_apply_split(params, x: torch.Tensor, cfg: ModelConfig, *,
+                       mode: str, cache: Optional[Dict]):
+    """:func:`mlstm_apply`'s train and prefill on a residual stream whose
+    sequence is split over "model" (the reference's layout,
+    ``src/repro/sharding.py``'s ``constrain_batch``): the block keeps the
+    split and runs on the rank's shards (:func:`_mlstm_shard`) with the
+    weights whole, so that no DTensor op, and so no torch version's
+    choice of layout, lies between this entry and its exit.  The weights'
+    gradients come back as partial sums over the batch axes and "model"."""
+    B, S, d = x.shape
+    spec = batch_spec(x.shape, 1)
+    grads = batch_axes() + ("model",)
+    w = {k: to_local(t, (None,) * t.ndim, partial_grad=grads)
+         for k, t in _mlstm_weights(params, x.dtype).items()}
+    conv0 = (None if cache is None else
+             to_local(cache["conv"], batch_spec(cache["conv"].shape)))
+    y, state = _mlstm_shard(w, to_local(x, spec), conv0, cfg, mode)
+    y = from_local(y, (B, S, d), spec)
+    if state is None:
+        return y, None
+    return y, {k: from_local(t, (B,) + tuple(t.shape[1:]),
+                             batch_spec((B,) + tuple(t.shape[1:])))
+               for k, t in state.items()}
+
+
+def _mlstm_shard(w: Dict, x: torch.Tensor, conv0: Optional[torch.Tensor],
+                 cfg: ModelConfig, mode: str):
+    """The mLSTM block on local tensors: ``x`` (b, s, d) is this rank's run
+    of ``s`` tokens of a sequence split over "model", ``w`` the whole
+    weights, ``conv0`` the carried conv state (or None).  Explicit
+    collectives join the ranks:
+
+    - the causal conv takes its halo, the previous rank's last
+      ``conv_width - 1`` inputs, from one small all-gather of every rank's
+      tail (rank 0 takes ``conv0``);
+    - the cumulative log forget gates are offset by the earlier ranks'
+      totals, from one all-gather of (b, H) a rank;
+    - k, v, ``i_raw`` and the offset gates are gathered along the sequence
+      once, and the rank computes its own query rows of the parallel form
+      against them: 1/m of the plain block's work;
+    - a prefill's final (C, n, m) state is the plain one's sum over the
+      sequence taken over the rank's tokens and combined over "model"
+      (the row max through ``model_max``, the sums in one all-reduce); its
+      conv state is the last rank's tail.
+
+    Returns y (b, s, d) and, in prefill, the state whole on every rank."""
+    b, s, _ = x.shape
+    H, K = cfg.num_heads, cfg.conv_width
+    m, r = model_axis_size(), model_rank()
+    # every rank's use of a gathered tensor reaches its gradient, rank 0's
+    # too (through ``torch.where``): the backward's reduce-scatters are
+    # collectives, which every rank must run
+    first = torch.tensor(r == 0, device=x.device)
+    xm, z = torch.chunk(x @ w["w_up"], 2, dim=-1)        # (b,s,di) each
+    pad, tails = conv0, None
+    if K > 1:
+        tails = gather_seq(xm[:, s - (K - 1):])          # (b, m*(K-1), di)
+        prev = (r - 1) % m
+        pad = torch.where(
+            first, xm.new_zeros(()) if conv0 is None else conv0.to(xm.dtype),
+            tails[:, prev * (K - 1):(prev + 1) * (K - 1)])
+    xc, q, k, v, i_raw, logf, _ = _mlstm_inputs(w, xm, H, pad)
+
+    F_loc = torch.cumsum(logf, dim=1)                    # (b,s,H)
+    cum = torch.cumsum(gather_seq(F_loc[:, -1:]), dim=1)   # (b,m,H)
+    F_own = F_loc + torch.where(first, 0.0, cum[:, (r - 1) % m][:, None])
+    kv = gather_seq(torch.cat([k, v], dim=-1)).float()   # (b,S,H,2dk)
+    gates = gather_seq(torch.stack([F_own, i_raw], dim=-1))
+    k32, v32 = kv.chunk(2, dim=-1)
+    h = _mlstm_rows(r * s, F_own, q.float(), gates[..., 0], gates[..., 1],
+                    k32, v32)
+    y = _mlstm_out(w, h, xc, z, x.dtype)
+    if mode != "prefill":
+        return y, None
+    wl = cum[:, -1:] - F_own + i_raw                     # (b,s,H)
+    ms = model_max(torch.amax(wl, dim=1))                # (b,H)
+    wexp = torch.exp(wl - ms[:, None, :])
+    kl, vl = k.float(), v.float()
+    dk = kl.shape[-1]
+    acc = model_sum(torch.cat([
+        torch.einsum("bsn,bsnk,bsnv->bnkv", wexp, kl, vl),
+        torch.einsum("bsn,bsnk->bnk", wexp, kl)[..., None]], dim=-1),
+        sum_grads=False)
+    conv = (tails[:, (m - 1) * (K - 1):] if tails is not None
+            else xm.new_zeros((b, 0, xm.shape[-1])))
+    return y, {"C": acc[..., :dk], "n": acc[..., dk], "m": ms,
+               "conv": conv}
 
 
 # ===========================================================================
