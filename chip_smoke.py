@@ -58,9 +58,14 @@ the port's FedAvg fold on the card at 50M x 16, bitwise; and slice 15's
 launch tools: three dry-runs of the port's steps on fake process groups
 of 256 and 512 ranks on the card's device type (H2O-Danube-1.8B's
 ``train_4k``, its tight FL round across two pods, DeepSeek-V2-236B's
-``decode_32k``), their roofline report, and a one-rank dry-run of the
-training configuration above, whose predicted peak is held within 5% of
-the peak the card measured.  It also folds a
+``decode_32k``; later pairs in ``DRYRUN_PAIRS``, Granite-MoE-1B-A400M's
+``decode_32k`` on one node of eight cards among them), their roofline
+report, and a one-rank dry-run of the training configuration above,
+whose predicted peak is held within 5% of the peak the card measured;
+beside them, every family's sharded prefill, decode and train step on
+real gloo ranks of a (1, 2) and a (2, 2) mesh under this machine's
+torch, against the plain ones (``src_torch/tools/sharded_ranks.py``;
+phase ``sharded_ranks``).  It also folds a
 50M-parameter x 16-client round at the benchmark's geometry (FedAvg,
 then median, trimmed mean and Krum on distinct payloads), times each
 kernel at its main path's shape beside its bound (``scatter_wsum`` also
@@ -3144,7 +3149,12 @@ DRYRUN_PAIRS = (
     ("deepseek-v2-236b", "decode_32k", ()),
     ("recurrentgemma-2b", "decode_32k", ()),
     ("qwen3-32b", "decode_32k", ()),
-    ("xlstm-350m", "prefill_32k", ()))
+    ("xlstm-350m", "prefill_32k", ()),
+    # one node of eight cards serving the MoE tensor-parallel
+    ("granite-moe-1b-a400m", "decode_32k", ("--mesh", "1x8")))
+#: the MoE pairs: no view of theirs at models/mlp.py may take the relaxed
+#: rule (on real ranks such a view raises)
+DRYRUN_MOE_ARCHS = ("granite-moe-1b-a400m", "deepseek-v2-236b")
 #: xLSTM's counted FLOPs a device at most this many times its analytic
 #: count (the parallel form computes every key of a query's chunk, the
 #: analytic count the causal half)
@@ -3164,53 +3174,77 @@ print(json.dumps(rec))
 """
 
 
-def phase_dryrun(card: str, train: dict):
-    """Slice 15's main path: the dry-run of :data:`DRYRUN_PAIRS` on fake
-    process groups (fake tensors on the card's device type: no storage, no
-    kernel), the roofline report of their records, and a one-rank dry-run
-    of phase ``train``'s exact ``TrainConfig``, whose predicted peak is
-    held to the peak the card measured there.  The processes run at once;
-    a failed one fails the phase, as does a decode pair that does not fit
-    80 GB or an xLSTM pair that counts more than
-    :data:`DRYRUN_XLSTM_FLOPS_MAX` times its analytic FLOPs."""
-    import dataclasses
-    import tempfile
+class DryrunProcs:
+    """Phase ``dryrun``'s processes, started together: one for each of
+    :data:`DRYRUN_PAIRS` and the calibration."""
 
-    from repro_torch.launch.mesh import (HBM_BW, NET_BW, NVLINK_BW,
-                                         PEAK_FLOPS_BF16)
+    def __init__(self, train: dict):
+        import dataclasses
+        import tempfile
 
-    before = _launch_counts()
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src_torch"))
-    with tempfile.TemporaryDirectory() as d:
+        self.t0 = time.perf_counter()
+        self.dir = tempfile.mkdtemp(prefix="dryrun-")
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src_torch"))
         cmds = {}
         for i, (arch, shape, flags) in enumerate(DRYRUN_PAIRS):
             cmds[f"pair{i}"] = [
                 sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                 arch, "--shape", shape, *flags,
-                "--out", os.path.join(d, f"pair{i}.jsonl")]
+                "--out", os.path.join(self.dir, f"pair{i}.jsonl")]
         cmds["calibration"] = [sys.executable, "-c", _CALIBRATE, json.dumps(
             dataclasses.asdict(train["tcfg"]))]
-        procs, logs = {}, {}
+        self.env, self.procs, self.logs = env, {}, {}
         try:
             for name, cmd in cmds.items():
-                logs[name] = open(os.path.join(d, name + ".log"), "w+")
-                procs[name] = subprocess.Popen(
-                    cmd, cwd=HERE, env=env, stdout=logs[name],
+                self.logs[name] = open(os.path.join(self.dir, name + ".log"),
+                                       "w+")
+                self.procs[name] = subprocess.Popen(
+                    cmd, cwd=HERE, env=env, stdout=self.logs[name],
                     stderr=subprocess.STDOUT)
-            rcs = {name: p.wait(timeout=DRYRUN_TIMEOUT_S)
-                   for name, p in procs.items()}
-        finally:
-            for p in procs.values():
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        except BaseException:
+            self.stop()
+            raise
+
+    def running(self) -> int:
+        return sum(p.poll() is None for p in self.procs.values())
+
+    def stop(self) -> None:
+        import shutil
+
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in self.logs.values():
+            f.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def phase_dryrun(card: str, train: dict, procs: DryrunProcs):
+    """Slice 15's main path: the dry-run of :data:`DRYRUN_PAIRS` on fake
+    process groups (fake tensors on the card's device type: no storage, no
+    kernel), the roofline report of their records, and a one-rank dry-run
+    of phase ``train``'s exact ``TrainConfig``, whose predicted peak is
+    held to the peak the card measured there.  The processes run at once
+    (started by ``procs``); a failed one fails the phase, as does a decode
+    pair that does not fit 80 GB, an xLSTM pair that counts more than
+    :data:`DRYRUN_XLSTM_FLOPS_MAX` times its analytic FLOPs, or a MoE pair
+    with a view at ``models/mlp.py`` that took the relaxed rule.  Each
+    pair's line lists its relaxed views by site."""
+    from repro_torch.launch.mesh import (HBM_BW, NET_BW, NVLINK_BW,
+                                         PEAK_FLOPS_BF16)
+
+    before = _launch_counts()
+    d = procs.dir
+    try:
+        rcs = {name: p.wait(timeout=max(
+            DRYRUN_TIMEOUT_S - (time.perf_counter() - procs.t0), 1))
+            for name, p in procs.procs.items()}
         out = {}
-        for name, f in logs.items():
+        for name, f in procs.logs.items():
             f.seek(0)
             out[name] = f.read()
-            f.close()
-        wall_s = time.perf_counter() - t0
+        wall_s = time.perf_counter() - procs.t0
         for name, rc in rcs.items():
             check(rc == 0, f"dryrun: {name} exited {rc}: "
                            f"{out[name][-3000:]}")
@@ -3223,23 +3257,14 @@ def phase_dryrun(card: str, train: dict):
             f.writelines(json.dumps(r) + "\n" for r in recs)
         report = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.roofline", "--md",
-             "--in", joined], cwd=HERE, env=env, capture_output=True,
+             "--in", joined], cwd=HERE, env=procs.env, capture_output=True,
             text=True, timeout=120, check=True).stdout
+    finally:
+        procs.stop()
     check(len(recs) == len(DRYRUN_PAIRS)
           and all(r["status"] == "ok" for r in recs),
           f"dryrun: a pair is not ok: {[r.get('error') for r in recs]}")
     print(report, flush=True)
-    for r in recs:
-        pd = r["per_device"]
-        check(r["shape"] not in ("decode_32k", "long_500k")
-              or pd["fits_80GB"],
-              f"dryrun: {r['arch']} {r['shape']} does not fit 80 GB: "
-              f"{pd['peak_bytes_est'] / 1e9:.2f} GB")
-        ratio = pd["counted_flops_raw"] / pd["analytic_flops"]
-        check(not r["arch"].startswith("xlstm")
-              or ratio <= DRYRUN_XLSTM_FLOPS_MAX,
-              f"dryrun: {r['arch']} {r['shape']} counts {ratio:.2f}x its "
-              f"analytic FLOPs")
     for r in recs:
         pd = r["per_device"]
         emit("dryrun_pair", card=card, arch=r["arch"], shape=r["shape"],
@@ -3254,7 +3279,24 @@ def phase_dryrun(card: str, train: dict):
              useful_flops_frac=r["useful_flops_frac"],
              place_s=r["place_s"], trace_s=r["trace_s"],
              sharding_fallbacks=len(r["sharding_fallbacks"]),
+             relaxed_views=r["relaxed_views"],
              dominant=r["roofline"]["dominant"])
+    for r in recs:
+        pd = r["per_device"]
+        check(r["shape"] not in ("decode_32k", "long_500k")
+              or pd["fits_80GB"],
+              f"dryrun: {r['arch']} {r['shape']} does not fit 80 GB: "
+              f"{pd['peak_bytes_est'] / 1e9:.2f} GB")
+        ratio = pd["counted_flops_raw"] / pd["analytic_flops"]
+        check(not r["arch"].startswith("xlstm")
+              or ratio <= DRYRUN_XLSTM_FLOPS_MAX,
+              f"dryrun: {r['arch']} {r['shape']} counts {ratio:.2f}x its "
+              f"analytic FLOPs")
+        moe = {site: n for site, n in r["relaxed_views"].items()
+               if site.startswith("models/mlp.py")}
+        check(r["arch"] not in DRYRUN_MOE_ARCHS or not moe,
+              f"dryrun: {r['arch']} {r['shape']} {r['mesh']} resharded "
+              f"views at the MoE: {moe}")
     cal = json.loads(out["calibration"].strip().splitlines()[-1])
     check(cal["status"] == "ok", f"dryrun: calibration {cal}")
     predicted = cal["per_device"]["peak_bytes_est"]
@@ -3281,6 +3323,58 @@ def phase_dryrun(card: str, train: dict):
              measured_step_s=train["step_ms"] / 1e3,
              place_s=cal["place_s"], trace_s=cal["trace_s"]),
          kernel_launches=after)
+
+
+# ---------------------------------------------------------------------------
+# the sharded steps on real ranks under the card's own torch
+# ---------------------------------------------------------------------------
+SHARDED_MESHES = ((1, 2), (2, 2))
+SHARDED_BUDGET_S = 240
+
+
+def run_sharded_ranks(busy=lambda: 0) -> dict:
+    """``src_torch/tools/sharded_ranks.py``'s checks of every family on
+    each of :data:`SHARDED_MESHES` (gloo, one CPU process a rank), on as
+    many of the host's cores as ``busy()`` (processes of another phase
+    still running) leaves free."""
+    sys.path.insert(0, os.path.join(HERE, "src_torch", "tools"))
+    import sharded_ranks as SR
+
+    cpus = len(os.sched_getaffinity(0))
+    t0 = time.perf_counter()
+    lines = SR.run_all(SR.ARCHS, SHARDED_MESHES,
+                       jobs=lambda: cpus - busy(),
+                       timeout=SHARDED_BUDGET_S)
+    return dict(lines=lines, wall_s=time.perf_counter() - t0, cpus=cpus,
+                archs=SR.ARCHS, paths=SR.PATHS)
+
+
+def phase_sharded_ranks(card: str, run: dict):
+    """The sharded prefill, decode and train step of every family but the
+    quickstart MLP on real gloo ranks of a (1, 2) and a (2, 2) mesh, each
+    against the plain one, under this machine's torch (run by
+    :func:`run_sharded_ranks` beside phase ``dryrun``'s processes): one
+    line per (family, mesh, path) with ``ok``, the largest error and the
+    seconds.  A failed check or rank, or a run past
+    :data:`SHARDED_BUDGET_S`, fails the phase."""
+    lines = sorted(run["lines"], key=lambda r: (r["arch"], r["mesh"],
+                                                r["path"]))
+    for r in lines:
+        emit("sharded_ranks_check", card=card, **r)
+    want = {(a, f"{d}x{m}", p) for a in run["archs"]
+            for d, m in SHARDED_MESHES for p in run["paths"]}
+    got = {(r["arch"], r["mesh"], r["path"]) for r in lines if r["ok"]}
+    emit("sharded_ranks", card=card, torch=torch.__version__,
+         wall_s=run["wall_s"], cpus=run["cpus"], checks=len(lines),
+         passed=len(got & want),
+         max_err={p: max((r.get("max_err", 0.0) for r in lines
+                          if r["path"] == p and r["ok"]), default=None)
+                  for p in run["paths"]})
+    bad = [r for r in lines if not r["ok"]]
+    check(not bad and got == want,
+          f"sharded_ranks: failed {[(r['arch'], r['mesh'], r['path'], r.get('where'), r.get('error', '')[:300]) for r in bad]}, missing {sorted(want - got)}")
+    check(run["wall_s"] <= SHARDED_BUDGET_S,
+          f"sharded_ranks: {run['wall_s']:.1f} s > {SHARDED_BUDGET_S} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3824,7 +3918,14 @@ def main() -> int:
     example_launches = phase_examples(dev)
     phase_legacy_baseline(dev, card)
     train = phase_train(dev, card)
-    phase_dryrun(card, train)
+    dryrun = DryrunProcs(train)
+    try:
+        ranks = run_sharded_ranks(busy=dryrun.running)
+    except BaseException:
+        dryrun.stop()
+        raise
+    phase_dryrun(card, train, dryrun)
+    phase_sharded_ranks(card, ranks)
     tcp_launches = phase_tcp_round(dev, card)
     fed = phase_federated_llm(dev, card)
     phase_tight_round(dev, card)

@@ -40,6 +40,13 @@ CPU tensors):
   python -m repro_torch.launch.dryrun --arch h2o-danube-1.8b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out results.jsonl]
   python -m repro_torch.launch.dryrun --arch X --shape train_4k --fl-round
+  python -m repro_torch.launch.dryrun --arch granite-moe-1b-a400m \
+      --shape decode_32k --mesh 1x8
+
+Each record carries ``relaxed_views``, ``{site: count}``: the views of the
+trace that DTensor's strict rule refuses, by the port's innermost call
+site (:func:`_views_may_reshard`); the summary line names the pairs that
+have any.
 """
 from __future__ import annotations
 
@@ -183,8 +190,83 @@ def _dtensor_metadata_untraced():
             setattr(owner, name, orig)
 
 
+_VIEW_OPS = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default)
+
+
+def _ints(shape) -> Tuple:
+    return tuple(v if isinstance(v, int) else str(v) for v in shape)
+
+
+def _port_site() -> str:
+    """The port's innermost frame on the stack, ``file:line`` under
+    ``repro_torch/`` (this module's own frames skipped); in a backward
+    pass, with the autograd node that runs the view."""
+    site = next((f"{f.filename.rsplit('repro_torch/')[-1]}:{f.lineno}"
+                 for f in reversed(traceback.extract_stack())
+                 if "repro_torch/" in f.filename and f.filename != __file__),
+                "unknown")
+    node = torch._C._current_autograd_node()
+    return site if node is None else f"{site} (backward: {node.name()})"
+
+
+#: the keys of the views the strict rule refused in this process: DTensor
+#: keeps a view's placement in caches of its own for the life of the
+#: process (torch 2.11's survive ``cache_clear``), so a later trace may
+#: see a refused view with no rule run
+_REFUSED: set = set()
+
+
+class RelaxedViews(TorchDispatchMode):
+    """Counts the views of DTensors that take the relaxed rule of
+    :func:`_views_may_reshard`, by the port's innermost call site, in
+    :attr:`sites`.  DTensor caches a view's placement, so the rule runs
+    once for each input placement, shape and target: the mode keys every
+    view it sees the same way and counts a view whose key the rule has
+    refused before (:data:`_REFUSED`).  Each view is counted at most once,
+    however often DTensor runs the rule for it.  A DTensor op is handed
+    back to DTensor."""
+
+    def __init__(self, sites: Optional[Dict[str, int]] = None):
+        super().__init__()
+        self.sites: Dict[str, int] = {} if sites is None else sites
+        # the key of the view being placed, and whether it is counted
+        self._pending = None
+        self._counted = False
+
+    def _count(self) -> None:
+        site = _port_site()
+        self.sites[site] = self.sites.get(site, 0) + 1
+
+    def refused(self) -> None:
+        """The strict rule refused the view being placed: the one this
+        mode saw last."""
+        if self._counted:
+            return
+        self._counted = True
+        if self._pending is not None:
+            _REFUSED.add(self._pending)
+        self._count()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            if func in _VIEW_OPS and isinstance(args[0], DTensor):
+                x = args[0]
+                self._pending = (func, tuple(x.device_mesh.shape),
+                                 str(x.placements), _ints(x.shape),
+                                 _ints(args[1]))
+                self._counted = self._pending in _REFUSED
+                if self._counted:
+                    self._count()
+            else:
+                self._pending, self._counted = None, False
+            return NotImplemented
+        return func(*args, **(kwargs or {}))
+
+
 @contextlib.contextmanager
-def _views_may_reshard():
+def _views_may_reshard(seen: RelaxedViews):
     """DTensor refuses an eager ``view`` whose placements it cannot keep
     (a view must alias its input): in torch 2.11, for example, flattening
     the sequence-parallel residual (B on "data", S on "model") into
@@ -194,15 +276,14 @@ def _views_may_reshard():
     ``view`` or ``_unsafe_view`` that DTensor's rule refuses takes the
     rule ``reshape`` has instead: it redistributes what it cannot keep (an
     all-gather of the split dim, counted).  A view the rule takes is
-    placed as before."""
+    placed as before.  Each refusal is counted by ``seen`` (enter it
+    among the trace's modes): on real ranks such a view raises."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._ops import _view_ops
 
-    aten = torch.ops.aten
     prop = DTensor._op_dispatcher.sharding_propagator
-    ops = (aten.view.default, aten._unsafe_view.default)
     saved = {op: (prop.op_strategy_funcs[op], prop.op_to_schema_info.get(op))
-             for op in ops}
+             for op in _VIEW_OPS}
     for op, (strict, info) in saved.items():
         _view_ops.register_op_strategy_map(op, torch.Tensor.view,
                                            schema_info=info,
@@ -213,6 +294,7 @@ def _views_may_reshard():
             try:
                 return _strict(op_schema)
             except RuntimeError:
+                seen.refused()
                 return _relaxed(op_schema)
 
         prop.op_strategy_funcs[op] = strategy
@@ -253,13 +335,14 @@ def _slstm_steps(n: int):
 
 
 def _trace_slstm_scaled(fn, args, shardings, device: torch.device,
-                        S: int) -> Dict[str, Any]:
+                        S: int, relaxed: Optional[Dict[str, int]] = None
+                        ) -> Dict[str, Any]:
     """:func:`trace_step` with the sLSTM loop cut to each of
     :data:`SLSTM_TRACE_STEPS`, its counts and peak extrapolated to ``S``
-    steps."""
+    steps (``relaxed`` collects the first trace's relaxed views)."""
     a, b = SLSTM_TRACE_STEPS
     with _slstm_steps(a):
-        short = trace_step(fn, args, shardings, device)
+        short = trace_step(fn, args, shardings, device, relaxed=relaxed)
     with _slstm_steps(b):
         rec = trace_step(fn, args, shardings, device)
     k = (S - b) / (b - a)
@@ -271,6 +354,12 @@ def _trace_slstm_scaled(fn, args, shardings, device: torch.device,
         got = coll.get(name, 0.0)
         coll[name] = got + k * (got - short["collective_bytes"].get(name, 0))
     rec["collective_bytes"] = dict(sorted(coll.items()))
+    views = rec["relaxed_views"]
+    for site in set(views) | set(short["relaxed_views"]):
+        got = views.get(site, 0)
+        views[site] = round(got + k * (got - short["relaxed_views"].get(
+            site, 0)))
+    rec["relaxed_views"] = dict(sorted(views.items()))
     rec["place_s"] = round(short["place_s"] + rec["place_s"], 1)
     rec["trace_s"] = round(short["trace_s"] + rec["trace_s"], 1)
     rec["scaled"] = {"slstm_steps": [b, S]}
@@ -429,14 +518,18 @@ def place(args, shardings, device: torch.device, fake: bool):
                  for a, sh in zip(args, shardings))
 
 
-def count_step(fn, placed: Sequence, device_type: str) -> Dict[str, Any]:
+def count_step(fn, placed: Sequence, device_type: str,
+               relaxed: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
     """Run ``fn(*placed)`` once under the counters: FLOPs, collective
-    bytes by name and the peak of live bytes, per device."""
+    bytes by name, the peak of live bytes, per device, and the views that
+    took the relaxed rule by site (also into ``relaxed`` as they come, so
+    a step that raises leaves its count there)."""
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
 
     flops = FlopCounterMode(display=False)
     coll = CollectiveBytes()
+    views = RelaxedViews(relaxed)
     mem = MemTracker()
     mem.track_external(*tree_leaves(list(placed)))
     arg_bytes = _device_total(mem.get_tracker_snapshot(), device_type)
@@ -444,14 +537,15 @@ def count_step(fn, placed: Sequence, device_type: str) -> Dict[str, Any]:
     # back to DTensor, so it never sees the op at its global shape: it
     # counts the local ops this rank runs, per device, replicated work
     # included
-    with _dtensor_metadata_untraced(), _views_may_reshard(), flops, coll, \
-            mem:
+    with _dtensor_metadata_untraced(), _views_may_reshard(views), flops, \
+            coll, mem, views:
         out = fn(*placed)
     peak = _device_total(mem.get_tracker_snapshot("peak"), device_type)
     del out
     return {"counted_flops_raw": float(flops.get_total_flops()),
             "collective_bytes": dict(sorted(coll.bytes.items())),
-            "argument_bytes": arg_bytes, "peak_bytes_est": peak}
+            "argument_bytes": arg_bytes, "peak_bytes_est": peak,
+            "relaxed_views": dict(sorted(views.sites.items()))}
 
 
 def _device_total(snapshot, device_type: str) -> int:
@@ -460,7 +554,8 @@ def _device_total(snapshot, device_type: str) -> int:
 
 
 def trace_step(fn, args, shardings, device: torch.device,
-               fake: bool = True) -> Dict[str, Any]:
+               fake: bool = True,
+               relaxed: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
     """Place ``args`` and count one step: on fake tensors under
     ``FakeTensorMode(shape_env=ShapeEnv())`` (a value the step reads off a
     fake tensor becomes a symbolic int instead of an error), or, with
@@ -469,7 +564,7 @@ def trace_step(fn, args, shardings, device: torch.device,
     if not fake:
         placed = place(args, shardings, device, fake=False)
         t_place = time.perf_counter() - t0
-        rec = count_step(fn, placed, device.type)
+        rec = count_step(fn, placed, device.type, relaxed)
     else:
         from torch._subclasses.fake_tensor import FakeTensorMode
         from torch.fx.experimental.symbolic_shapes import ShapeEnv
@@ -477,7 +572,7 @@ def trace_step(fn, args, shardings, device: torch.device,
         with FakeTensorMode(shape_env=ShapeEnv()):
             placed = place(args, shardings, device, fake=True)
             t_place = time.perf_counter() - t0
-            rec = count_step(fn, placed, device.type)
+            rec = count_step(fn, placed, device.type, relaxed)
     rec["place_s"] = round(t_place, 1)
     rec["trace_s"] = round(time.perf_counter() - t0 - t_place, 1)
     return rec
@@ -541,6 +636,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
              else 512 if multi_pod else 256)
     _start_group(world)
     shlib.clear_fallbacks()
+    relaxed: Dict[str, int] = {}
     try:
         mesh = _make_mesh(multi_pod, mesh_shape, dev)
         names = tuple(mesh.mesh_dim_names)
@@ -558,12 +654,14 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
         if (SLSTM in cfg.layer_kinds and shape.kind != "decode"
                 and shape.seq_len > SLSTM_TRACE_STEPS[1]):
             counted = _trace_slstm_scaled(fn, args, shardings, dev,
-                                          shape.seq_len)
+                                          shape.seq_len, relaxed)
         else:
-            counted = trace_step(fn, args, shardings, dev, fake=True)
+            counted = trace_step(fn, args, shardings, dev, fake=True,
+                                 relaxed=relaxed)
     except Exception as e:  # noqa: BLE001 -- one pair's failure is its record
         rec["status"] = "FAILED"
         rec["error"] = f"{type(e).__name__}: {e}"[:2000]
+        rec["relaxed_views"] = dict(sorted(relaxed.items()))
         # the step's innermost frame in the port (the counters' own
         # frames, in this module, sit below it)
         ours = [f for f in traceback.extract_tb(e.__traceback__)
@@ -616,6 +714,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False,
                               if est.flops_per_device else None),
         "sharding_fallbacks": {k: list(v)
                                for k, v in shlib.FALLBACKS.items()},
+        # views DTensor's strict rule refused, resharded by the trace: on
+        # real ranks each raises
+        "relaxed_views": counted["relaxed_views"],
     })
     if "scaled" in counted:
         rec["scaled"] = counted["scaled"]
@@ -644,8 +745,16 @@ def main(argv: Optional[List[str]] = None,
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--fl-round", action="store_true")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM or PxDxM on a fake group of that many ranks "
+                         "(default: the production mesh)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    mesh_shape = None
+    if args.mesh:
+        if args.multi_pod or args.both_meshes:
+            ap.error("--mesh replaces --multi-pod / --both-meshes")
+        mesh_shape = tuple(int(n) for n in args.mesh.lower().split("x"))
 
     if args.all:
         pairs = [(a, s) for a in list_archs() if a != "flower-quickstart"
@@ -660,7 +769,7 @@ def main(argv: Optional[List[str]] = None,
     for arch, shape in pairs:
         for mp in meshes:
             rec = run_one(arch, shape, multi_pod=mp, fl_round=args.fl_round,
-                          device=device)
+                          device=device, mesh_shape=mesh_shape)
             runs.append(rec)
             if args.out:
                 with open(args.out, "a") as f:
@@ -668,7 +777,12 @@ def main(argv: Optional[List[str]] = None,
     n_fail = sum(r["status"] == "FAILED" for r in runs)
     n_ok = sum(r["status"] == "ok" for r in runs)
     n_skip = sum(r["status"] == "skipped" for r in runs)
-    print(f"dry-run summary: {n_ok} ok, {n_skip} skipped, {n_fail} FAILED")
+    relaxed = [f"{r['arch']}x{r['shape']}x{r['mesh']} "
+               f"({sum(r['relaxed_views'].values())})"
+               for r in runs if r.get("relaxed_views")]
+    print(f"dry-run summary: {n_ok} ok, {n_skip} skipped, {n_fail} FAILED, "
+          f"{len(relaxed)} with relaxed views"
+          + (": " + ", ".join(relaxed) if relaxed else ""))
     if n_fail:
         sys.exit(1)
     return runs

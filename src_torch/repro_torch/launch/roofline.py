@@ -9,7 +9,9 @@ NVIDIA H100 SXM's constants (``launch/mesh.py``)
                  per GPU: every axis of both meshes spans nodes)
 plus the dominant term, MODEL_FLOPS/analytic ratio ("useful fraction"),
 the traced peak against the card's 80 GB, and a one-line "what would
-move the dominant term" suggestion.
+move the dominant term" suggestion.  A pair whose trace resharded views
+DTensor's strict rule refuses (the record's ``relaxed_views``: on real
+ranks each raises) is marked in its row and listed under the summary.
 
 Usage: python -m repro_torch.launch.roofline --in dryrun_results.jsonl
 [--md]
@@ -54,6 +56,15 @@ def fmt_s(x: float) -> str:
     return f"{x:.2f}s"
 
 
+def _relaxed(r: Dict) -> int:
+    return sum(r.get("relaxed_views", {}).values())
+
+
+def _relaxed_mark(r: Dict) -> str:
+    n = _relaxed(r)
+    return f" (relaxed views: {n})" if n else ""
+
+
 def make_table(recs: List[Dict], md: bool = True) -> str:
     head = ["arch", "shape", "mesh", "t_compute", "t_memory", "t_collective",
             "dominant", "useful", "peakGB", "fits80GB"]
@@ -76,7 +87,7 @@ def make_table(recs: List[Dict], md: bool = True) -> str:
             fmt_s(t["t_collective_s"]), t["dominant"],
             f"{uf:.2f}" if uf else "-",
             f"{pd['peak_bytes_est']/1e9:.1f}",
-            "Y" if pd.get("fits_80GB") else "N",
+            ("Y" if pd.get("fits_80GB") else "N") + _relaxed_mark(r),
         ])
     if md:
         out = ["| " + " | ".join(head) + " |",
@@ -104,6 +115,14 @@ def summarize(recs: List[Dict]) -> str:
     out.append("largest collective term: " + ", ".join(
         f"{r['arch']}x{r['shape']}x{r['mesh']}"
         f"({fmt_s(r['roofline']['t_collective_s'])})" for r in collbound))
+    relaxed = [r for r in recs if r["status"] != "skipped" and _relaxed(r)]
+    if relaxed:
+        out.append("relaxed views (resharded by the trace; each raises on "
+                   "real ranks): " + "; ".join(
+                       f"{r['arch']}x{r['shape']}x{r['mesh']} " + ", ".join(
+                           f"{site} x{n}"
+                           for site, n in r["relaxed_views"].items())
+                       for r in relaxed))
     return "\n".join(out)
 
 

@@ -6,6 +6,7 @@
     logits, _, metrics = model.apply(params, batch, mode="train")
     cache = model.init_cache(batch_size, max_len)
     logits, cache, _ = model.apply(params, batch, mode="decode", cache=cache)
+    batch = model.make_batch(shape, seed=0)     # numpy, the reference's
 
 ``batch`` is a dict: tokens, labels, and (per family) extra_embeds (a
 VLM's patch embeddings) or audio_embeds (an encoder-decoder's frames).
@@ -141,6 +142,34 @@ class Model:
         if cfg.is_encoder_decoder and shape.kind != "decode":
             out["audio_embeds"] = meta(
                 (B, cfg.encoder_seq or 1500, cfg.d_model), cfg.compute_dtype)
+        return out
+
+    def make_batch(self, shape_or_batch, seq_len: Optional[int] = None,
+                   seed: int = 0) -> Dict[str, np.ndarray]:
+        """A random batch as numpy arrays, the reference's draws from
+        ``seed``: an :class:`InputShape` (S is 1 for decode), or a batch
+        size and ``seq_len`` of a train batch."""
+        if isinstance(shape_or_batch, InputShape):
+            B, S, kind = (shape_or_batch.global_batch, shape_or_batch.seq_len,
+                          shape_or_batch.kind)
+            S = 1 if kind == "decode" else S
+        else:
+            B, S, kind = shape_or_batch, seq_len, "train"
+        rng = np.random.default_rng(seed)
+        cfg = self.cfg
+        out: Dict[str, np.ndarray] = {
+            "tokens": rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)}
+        if kind == "train":
+            out["labels"] = rng.integers(0, cfg.vocab_size, (B, S),
+                                         dtype=np.int32)
+        if cfg.frontend == "vision" and kind != "decode":
+            out["extra_embeds"] = rng.normal(
+                size=(B, cfg.num_prefix_tokens, cfg.d_model)
+            ).astype(np.float32)
+        if cfg.is_encoder_decoder and kind != "decode":
+            out["audio_embeds"] = rng.normal(
+                size=(B, cfg.encoder_seq or 1500, cfg.d_model)
+            ).astype(np.float32)
         return out
 
 

@@ -28,8 +28,8 @@ from repro_torch.models import attention_impl
 from repro_torch.models.base import (ParamSpec, apply_norm, apply_rope,
                                      norm_spec)
 from repro_torch.sharding import (batch_axes, batch_spec, cast_weight,
-                                  constrain_heads, from_local, model_dim,
-                                  model_rank, to_local)
+                                  constrain_heads, from_local, gather_dim,
+                                  model_dim, model_rank, to_local)
 
 
 def specs(cfg: ModelConfig) -> Dict:
@@ -327,6 +327,9 @@ def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
     dt = x.dtype
     scale = mla_scale(cfg, dt, x.device)
+    # the sequence gathered: torch 2.11 refuses the products' flatten of a
+    # split one
+    x = gather_dim(x, 1)
 
     cq = apply_norm(params["q_norm"], x @ params["wdq"].to(dt), cfg)
     q = _project(cq, params["wuq"].to(dt))

@@ -35,7 +35,9 @@ from repro_torch.models.base import (ParamSpec, apply_norm, index_layer,
                                      map_specs, norm_spec,
                                      sinusoidal_positions, stack_layers,
                                      unbind_layers)
-from repro_torch.sharding import constrain_batch, constrain_logits, gather_dim
+from repro_torch.sharding import (batch_spec, constrain_batch,
+                                  constrain_logits, from_local, gather_dim,
+                                  on_mesh, to_local)
 
 
 def _sqrt_hd(hd: int, dtype: torch.dtype) -> torch.Tensor:
@@ -57,23 +59,54 @@ def cross_specs(cfg: ModelConfig) -> Dict:
     }
 
 
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dnh->bsnh"); under a mesh as the self-attention's
+    projections (``attention._project``: a split sequence stays split)."""
+    if on_mesh(x):
+        return attention._project(x, w)
+    return torch.einsum("bsd,dnh->bsnh", x, w)
+
+
+def _out(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bsnh,nhd->bsd"); under a mesh as the self-attention's
+    output projection, one product of the heads flattened (the einsum's
+    own order puts a split head dim second, which torch 2.11 refuses)."""
+    if not on_mesh(ctx):
+        return torch.einsum("bsnh,nhd->bsd", ctx, wo)
+    B, S, n, h = ctx.shape
+    y = ctx.reshape(B * S, n * h) @ wo.reshape(n * h, -1)
+    return y.view(B, S, -1)
+
+
 def cross_kv(params, enc_out: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    k = torch.einsum("bsd,dnh->bsnh", enc_out, params["wk"].to(enc_out.dtype))
-    v = torch.einsum("bsd,dnh->bsnh", enc_out, params["wv"].to(enc_out.dtype))
+    k = _heads(enc_out, params["wk"].to(enc_out.dtype))
+    v = _heads(enc_out, params["wv"].to(enc_out.dtype))
     return k, v
+
+
+def _cross_ctx(q, k, v, dtype: torch.dtype) -> torch.Tensor:
+    scores = torch.einsum("bqnh,bknh->bnqk", q, k).float()
+    w = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bnqk,bknh->bqnh", w, v)
 
 
 def cross_apply(params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """The scores are made in the compute dtype and only then widened to
-    fp32 for the softmax, as the reference makes them."""
-    q = torch.einsum("bsd,dnh->bsnh", x, params["wq"].to(x.dtype))
+    fp32 for the softmax, as the reference makes them.  Under a mesh they
+    are made on each rank's batch rows, every head and frame whole (the
+    scores' batched products flatten a split dim, which torch 2.11
+    refuses)."""
+    q = _heads(x, params["wq"].to(x.dtype))
     q = q / _sqrt_hd(cfg.resolved_head_dim, q.dtype)
-    scores = torch.einsum("bqnh,bknh->bnqk", q, k).float()
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bnqk,bknh->bqnh", w, v)
-    return torch.einsum("bsnh,nhd->bsd", ctx, params["wo"].to(x.dtype))
+    if on_mesh(q):
+        ctx = from_local(_cross_ctx(*(to_local(t, batch_spec(t.shape))
+                                      for t in (q, k, v)), x.dtype),
+                         q.shape, batch_spec(q.shape))
+    else:
+        ctx = _cross_ctx(q, k, v, x.dtype)
+    return _out(ctx, params["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -129,14 +162,16 @@ def _enc_layer(p, x: torch.Tensor, cfg: ModelConfig, impl: str
     h = apply_norm(p["norm1"], x, cfg)
     # bidirectional attention: the self-attention projections, no mask
     a = p["attn"]
-    q = torch.einsum("bsd,dnh->bsnh", h, a["wq"].to(h.dtype))
-    k = torch.einsum("bsd,dnh->bsnh", h, a["wk"].to(h.dtype))
-    v = torch.einsum("bsd,dnh->bsnh", h, a["wv"].to(h.dtype))
+    q = _heads(h, a["wq"].to(h.dtype))
+    k = _heads(h, a["wk"].to(h.dtype))
+    v = _heads(h, a["wv"].to(h.dtype))
     q = q / _sqrt_hd(cfg.resolved_head_dim, q.dtype)
     ctx = attention_impl.causal_attention(q, k, v, causal=False, impl=impl)
-    x = x + torch.einsum("bsnh,nhd->bsd", ctx, a["wo"].to(h.dtype))
+    # each block's output in the residual's layout before the add (see
+    # ``transformer.apply_layer``)
+    x = x + constrain_batch(_out(ctx, a["wo"].to(h.dtype)))
     h = apply_norm(p["norm2"], x, cfg)
-    return constrain_batch(x + mlp.apply(p["mlp"], h, cfg))
+    return constrain_batch(x + constrain_batch(mlp.apply(p["mlp"], h, cfg)))
 
 
 def encode(params, cfg: ModelConfig, audio_embeds: torch.Tensor,
@@ -185,13 +220,14 @@ def _dec_layer(p, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     y, nc = attention.apply(p["self_attn"], h, cfg, mode=mode,
                             positions=positions, cache=cache, kind=ATTN,
                             impl=impl, max_len=max_len)
-    x = x + y
+    x = x + constrain_batch(y)
     h = apply_norm(p["norm_x"], x, cfg)
     if k is None:
         k, v = cross_kv(p["cross"], enc_out)
-    x = x + cross_apply(p["cross"], h, k, v, cfg)
+    x = x + constrain_batch(cross_apply(p["cross"], h, k, v, cfg))
     h = apply_norm(p["norm2"], x, cfg)
-    return constrain_batch(x + mlp.apply(p["mlp"], h, cfg)), nc, k, v
+    return (constrain_batch(x + constrain_batch(mlp.apply(p["mlp"], h, cfg))),
+            nc, k, v)
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, mode: str,
@@ -263,8 +299,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, mode: str,
     x = apply_norm(params["final_norm"], x, cfg)
     if last_logit_only:
         x = x[:, -1:]
+    # the sequence gathered: the head's columns split over "model"
     logits = constrain_logits(
-        (x @ params["lm_head"].to(x.dtype)).float())
+        (gather_dim(x, 1) @ params["lm_head"].to(x.dtype)).float())
     if cfg.padded_vocab_size != cfg.vocab_size:
         col = torch.arange(logits.shape[-1], device=dev)
         logits = torch.where(col < cfg.vocab_size, logits, -1e30)

@@ -177,6 +177,9 @@ def rglru_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 cache: Optional[Dict] = None, impl: str = "eager"
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     B, S, d = x.shape
+    # the sequence gathered: torch 2.11 refuses the products' flatten of a
+    # split one
+    x = gather_dim(x, 1)
     xb = x @ cast_weight(params["wx"], x.dtype, ("embed", "mlp"))
     gate = activation("gelu")(
         x @ cast_weight(params["wy"], x.dtype, ("embed", "mlp")))
@@ -327,7 +330,10 @@ def _mlstm_inputs(w: Dict, xm: torch.Tensor, H: int, conv_state):
     q = (xc @ w["wq"].reshape(di, di)).view(B, S, H, dk) / rdk
     k = (xc @ w["wk"].reshape(di, di)).view(B, S, H, dk) / rdk
     v = (xm @ w["wv"].reshape(di, di)).view(B, S, H, dk)
-    if_gates = (xc @ w["w_if"] + w["b_if"].to(xm.dtype)).float()
+    # the product's pending sum reduced before the bias (torch 2.11 cannot
+    # make a split bias a partial sum)
+    if_gates = (gather_dim(xc @ w["w_if"], -1)
+                + w["b_if"].to(xm.dtype)).float()
     i_raw, f_raw = torch.chunk(if_gates, 2, dim=-1)      # (B,S,H)
     return xc, q, k, v, i_raw, _log_sigmoid(f_raw), new_conv
 
@@ -360,6 +366,48 @@ def _mlstm_out(w: Dict, h, xc, z, dtype: torch.dtype):
     return (h * F.silu(z)) @ w["w_down"]
 
 
+def _mlstm_step(q1, k1, v1, i1, f1, C0, n0, m0, total=lambda t: t):
+    """One decode step of the cell in fp32: the read-out h (B,H,dk) and
+    the new state (C, n, m) from the token's q, k, v (B,H,dk), its gates
+    (B,H) and the state.  ``total`` completes the two contractions over
+    the keys' dim (a sum over ranks where that dim is split)."""
+    m1 = torch.maximum(f1 + m0, i1)
+    fs = torch.exp(f1 + m0 - m1)[..., None]
+    isc = torch.exp(i1 - m1)[..., None]
+    C1 = (fs[..., None] * C0
+          + isc[..., None] * k1[..., :, None] * v1[..., None, :])
+    n1 = fs * n0 + isc * k1
+    num = total(torch.einsum("bhk,bhkv->bhv", q1, C1))
+    dot = total(torch.einsum("bhk,bhk->bh", q1, n1))
+    den = torch.maximum(torch.abs(dot), torch.exp(-m1))[..., None]
+    return num / den, C1, n1, m1
+
+
+def _mlstm_step_local(q1, k1, v1, i1, f1, C0, n0, m0):
+    """:func:`_mlstm_step` of DTensors on local shards, the state kept
+    where the cache's rule places it: its heads split over "model" (each
+    rank steps its own heads), or the keys' dim (each rank's part of the
+    two contractions, summed over "model"), or neither.  DTensor's
+    products would flatten the split dim, a view torch 2.11 refuses."""
+    split = model_dim(C0)
+    total = ((lambda t: model_sum(t, sum_grads=False)) if split == 2
+             else (lambda t: t))
+
+    def spec(t, keys: bool):
+        return batch_spec(t.shape, 1 if split == 1 else
+                          2 if split == 2 and keys else None)
+
+    args = (q1, k1, v1, i1, f1, C0, n0, m0)
+    # q, k, C and n carry the keys' dim; v, the gates and m do not (h, of
+    # v's shape, comes whole over the keys)
+    specs = [spec(t, keys) for t, keys in zip(
+        args, (True, True, False, False, False, True, True, False))]
+    out = _mlstm_step(*(to_local(t, sp) for t, sp in zip(args, specs)),
+                      total=total)
+    return tuple(from_local(o, args[i].shape, specs[i])
+                 for o, i in zip(out, (2, 5, 6, 7)))
+
+
 def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 cache: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -372,19 +420,11 @@ def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     xc, q, k, v, i_raw, logf, new_conv = _mlstm_inputs(w, xm, H, conv_state)
 
     if mode == "decode":
-        C0, n0, m0 = cache["C"], cache["n"], cache["m"]
-        i1, f1 = i_raw[:, 0], logf[:, 0]                 # (B,H)
-        m1 = torch.maximum(f1 + m0, i1)
-        fs = torch.exp(f1 + m0 - m1)[..., None]
-        isc = torch.exp(i1 - m1)[..., None]
-        k1, v1, q1 = k[:, 0].float(), v[:, 0].float(), q[:, 0].float()
-        C1 = (fs[..., None] * C0
-              + isc[..., None] * k1[..., :, None] * v1[..., None, :])
-        n1 = fs * n0 + isc * k1
-        num = torch.einsum("bhk,bhkv->bhv", q1, C1)
-        den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", q1, n1)),
-                            torch.exp(-m1))[..., None]
-        h = (num / den)[:, None]                         # (B,1,H,dk)
+        step = _mlstm_step_local if on_mesh(q) else _mlstm_step
+        h, C1, n1, m1 = step(q[:, 0].float(), k[:, 0].float(),
+                             v[:, 0].float(), i_raw[:, 0], logf[:, 0],
+                             cache["C"], cache["n"], cache["m"])
+        h = h[:, None]                                   # (B,1,H,dk)
         new_cache = {"C": C1, "n": n1, "m": m1, "conv": new_conv}
     elif mode in ("train", "prefill"):
         F_all = _cumsum_seq(logf)                        # (B,S,H)
@@ -601,7 +641,10 @@ def slstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     B, S, d = x.shape
     H = cfg.num_heads
-    # the input contributions of every gate, for all of S at once
+    # the input contributions of every gate, for all of S at once (the
+    # sequence gathered: torch 2.11 refuses the products' flatten of a
+    # split one)
+    x = gather_dim(x, 1)
     xg = {g: (x @ cast_weight(params[f"w_{g}"], x.dtype, ("embed", "mlp")))
           .float() for g in SLSTM_GATES}
 

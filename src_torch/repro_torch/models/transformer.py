@@ -102,7 +102,11 @@ def apply_layer(params, x, cfg: ModelConfig, kind: str, moe_layer: bool, *,
                                              cache=cache)
     else:
         raise ValueError(kind)
-    x = constrain_batch(x + y)
+    # each block's output is placed in the residual's layout before the
+    # add, so that its gradient comes back in the block's own layout
+    # (a sequence-split gradient reaching a product's flatten is a view
+    # torch 2.11 refuses)
+    x = constrain_batch(x + constrain_batch(y))
     if "mlp" in params:
         h = apply_norm(params["norm2"], x, cfg)
         if moe_layer:
@@ -110,7 +114,7 @@ def apply_layer(params, x, cfg: ModelConfig, kind: str, moe_layer: bool, *,
             aux = aux + metrics["moe_aux_loss"] + metrics["moe_z_loss"]
         else:
             y = mlp.apply(params["mlp"], h, cfg)
-        x = constrain_batch(x + y)
+        x = constrain_batch(x + constrain_batch(y))
     return x, aux, (new_cache if new_cache is not None else {})
 
 
@@ -276,7 +280,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, mode: str,
         head = cast_weight(params["embed"], x.dtype, ("vocab", "embed")).T
     else:
         head = cast_weight(params["lm_head"], x.dtype, ("embed", "vocab"))
-    logits = constrain_logits((x @ head).float())
+    # the sequence gathered: the head's columns split over "model"
+    logits = constrain_logits((gather_dim(x, 1) @ head).float())
     if cfg.logits_softcap:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
     if cfg.padded_vocab_size != cfg.vocab_size:

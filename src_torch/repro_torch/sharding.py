@@ -464,7 +464,9 @@ class _DenseGrad(torch.autograd.Function):
 
 def from_local(t: torch.Tensor, shape: Sequence[int], spec: Spec):
     """The DTensor of global ``shape`` whose rank's shard, placed by
-    ``spec`` on the activation mesh, is ``t``."""
+    ``spec`` on the activation mesh, is ``t`` (made contiguous: the
+    DTensor's strides are declared contiguous, and DTensor's views of it
+    act on the shard as declared)."""
     from torch.distributed.tensor import DTensor
 
     mesh = _ACT_MESH[0]
@@ -472,7 +474,8 @@ def from_local(t: torch.Tensor, shape: Sequence[int], spec: Spec):
     for n in reversed(tuple(shape)):
         stride.insert(0, acc)
         acc *= n
-    return DTensor.from_local(t, mesh, placements_for(mesh, spec),
+    return DTensor.from_local(t.contiguous(), mesh,
+                              placements_for(mesh, spec),
                               run_check=False, shape=torch.Size(shape),
                               stride=tuple(stride))
 
@@ -480,6 +483,11 @@ def from_local(t: torch.Tensor, shape: Sequence[int], spec: Spec):
 def batch_axes() -> Tuple[str, ...]:
     """The activation mesh's batch axes."""
     return _ACT_MESH[1]
+
+
+def batch_ranks() -> int:
+    """The product of the activation mesh's batch axes' sizes."""
+    return _batch_prod(_mesh_axis_sizes(_ACT_MESH[0]), _ACT_MESH[1])
 
 
 def model_dim(x) -> Optional[int]:
@@ -494,12 +502,19 @@ def model_dim(x) -> Optional[int]:
 
 
 def model_rank() -> int:
-    """This rank's coordinate on the activation mesh's "model" axis."""
+    """This rank's coordinate on the activation mesh's "model" axis (0
+    where it has none)."""
+    if "model" not in mesh_axis_names(_ACT_MESH[0]):
+        return 0
     return _ACT_MESH[0].get_local_rank("model")
 
 
+def _group(axis: str) -> str:
+    return _ACT_MESH[0].get_group(axis).group_name
+
+
 def _model_group() -> str:
-    return _ACT_MESH[0].get_group("model").group_name
+    return _group("model")
 
 
 _FC = torch.ops._c10d_functional
@@ -530,6 +545,17 @@ def model_sum(x: torch.Tensor, sum_grads: bool) -> torch.Tensor:
     """All-reduce of the local ``x`` over "model" (see :class:`_AllReduce`
     for ``sum_grads``)."""
     return _AllReduce.apply(x, _model_group(), sum_grads)
+
+
+def axes_sum(x: torch.Tensor, axes: Sequence[str],
+             sum_grads: bool) -> torch.Tensor:
+    """:func:`model_sum` over each of ``axes`` of the activation mesh
+    (one all-reduce an axis of more than one rank)."""
+    sizes = _mesh_axis_sizes(_ACT_MESH[0])
+    for a in axes:
+        if sizes.get(a, 1) > 1:
+            x = _AllReduce.apply(x, _group(a), sum_grads)
+    return x
 
 
 def model_max(x: torch.Tensor) -> torch.Tensor:

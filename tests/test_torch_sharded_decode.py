@@ -19,11 +19,12 @@ way), with the query's heads gathered once.
   than one layer's cache shard.
 - Gloo ranks (``tests/test_torch_sharded_ranks.py``'s ``_run_ranks``) at
   ``(1, 2)``, ``(2, 2)`` and ``(1, 3)``, fp32, Qwen3, H2O-Danube with a
-  12-slot rotating window that wraps, and DeepSeek-V2's MLA (experts
-  off: its layers with dense MLPs).  One decode layer whose two rows
-  write at either side of a shard boundary: the new cache bitwise the
-  one the same step writes into the gathered cache, and the plain one's
-  but at the new token (whose projections, split over the batch, round
+  12-slot rotating window that wraps, and DeepSeek-V2's MLA with its
+  experts (the MoE on local shards, ``models/mlp.py`` ``_moe_local``; 4
+  experts on 3 ranks: a slice of the banks each).  One decode layer
+  whose two rows write at either side of a shard boundary: the new
+  cache bitwise the one the same step writes into the gathered cache,
+  and the plain one's but at the new token (whose projections, split over the batch, round
   otherwise).  Ten greedy steps from a 7-token prompt into a 24-slot
   cache (crossing every shard boundary of 2 and 3 ranks) against the
   plain decode: logits within 2e-6 of the largest (at least 1; the
@@ -149,13 +150,11 @@ RULES = rules_for_shape(TC.INPUT_SHAPES["decode_32k"])
 
 
 def setup(arch, B, L, prompt, **over):
-    \"\"\"The smoke model in fp32 (DeepSeek-V2's experts off: its MLA layers
-    with dense MLPs), its params and a prefilled cache, plain and placed
-    by the decode rules.\"\"\"
+    \"\"\"The smoke model in fp32 (DeepSeek-V2 with its experts), its
+    params and a prefilled cache, plain and placed by the decode
+    rules.\"\"\"
     cfg = TC.get_model_config(arch, smoke=True).replace(dtype="float32",
                                                        **over)
-    if cfg.moe.enabled:
-        cfg = cfg.replace(moe=TC.MoEConfig())
     model = build_model(cfg)
     params = model.init(3, device="cpu")
     g = torch.Generator().manual_seed(11)
@@ -199,22 +198,23 @@ def check_layer(arch, B=2, L=24, **over):
                                 cfg, positions=pos, cache=lc, **kw)
     place = [Shard(0), Replicate()]
 
-    def run():
+    def run(cache):
         with implicit_replication():
             return attention.apply(
                 index_layer(p_d["scan_0"]["mix"], 0),
-                distribute_tensor(x, mesh, place), cfg, cache=lc_d,
+                distribute_tensor(x, mesh, place), cfg, cache=cache,
                 positions=distribute_tensor(pos, mesh, place), **kw)
 
-    got, new_d = sharded(run)
+    got, new_d = sharded(lambda: run(lc_d))
     # the same step with the cache gathered (the write and attention on
-    # the whole cache): the write is its bitwise, from the same projections
-    split = attention.model_dim
-    attention.model_dim = lambda t: None
-    try:
-        _, gathered = sharded(run)
-    finally:
-        attention.model_dim = split
+    # the whole cache): the write is its bitwise, from the same projections.
+    # DTensor's decode on a whole cache with its heads split flattens them,
+    # which torch 2.11 refuses (the port takes it only where the cache's
+    # sequence is not split over "model"): the yardstick runs under this
+    # torch's own rule
+    with SR.torch_flatten():
+        _, gathered = sharded(lambda: run(
+            {k: shlib.gather_dim(t, 1) for k, t in lc_d.items()}))
     close(got.full_tensor(), want, (arch, "y"))
     for name, t in new.items():
         assert model_split(new_d[name]) == Shard(1), (arch, name)

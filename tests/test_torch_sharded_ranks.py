@@ -2,8 +2,10 @@
 CPU: its values against the plain step's.
 
 Each case runs one interpreter a rank (as ``tests/test_torch_collective.py``
-runs them) on a ``(data, model)`` mesh, fp32, inputs from a seed; the
-layouts and their collectives are ``tests/test_torch_sharded_layout.py``'s.
+runs them; the runner and the step's check are
+``src_torch/tools/sharded_ranks.py``'s) on a ``(data, model)`` mesh, fp32,
+inputs from a seed; the layouts and their collectives are
+``tests/test_torch_sharded_layout.py``'s.
 
 - The eager attention on DTensors in the residual stream's layout (batch
   over "data", sequence over "model"), output and the gradients of q, k
@@ -31,56 +33,25 @@ layouts and their collectives are ``tests/test_torch_sharded_layout.py``'s.
 """
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src_torch"))
-import subprocess
-import tempfile
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src_torch",
+                                "tools"))
+
 import textwrap
-from pathlib import Path
 
 import pytest
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC_TORCH = os.path.join(ROOT, "src_torch")
+import sharded_ranks as SR
+
 RANK_TIMEOUT = 240
 
 
 def _run_ranks(body: str, data: int, model: int, tmp_path) -> list:
     """Run ``body`` in ``data`` x ``model`` fresh interpreters, one gloo
-    rank each, after ``_COMMON`` (a ``(data, model)`` mesh and the checks
-    in scope); every rank must print ``RANK_OK``."""
-    world = data * model
-    # a FileStore's file serves one group: each call starts its own
-    tmp_path = Path(tempfile.mkdtemp(dir=tmp_path))
-    code = textwrap.dedent("""
-        import os, sys
-        sys.path.insert(0, {src!r})
-        import torch, torch.distributed as dist
-        RANK, WORLD = int(sys.argv[1]), int(sys.argv[2])
-        dist.init_process_group("gloo", store=dist.FileStore({store!r}, WORLD),
-                                rank=RANK, world_size=WORLD)
-    """).format(src=SRC_TORCH, store=str(tmp_path / "store")) + \
-        f"DATA, MODEL = {data}, {model}\n" + _COMMON + \
-        textwrap.dedent(body) + \
-        "\ndist.destroy_process_group()\nprint('RANK_OK')\n"
-    script = tmp_path / "rank.py"
-    script.write_text(code)
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, str(script), str(r),
-                               str(world)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True, env=env)
-             for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=RANK_TIMEOUT)
-            outs.append(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate(timeout=30)
-    for out in outs:
-        assert "RANK_OK" in out, out[-3000:]
-    return outs
+    rank each (``src_torch/tools/sharded_ranks.py``'s runner: ``mesh``,
+    the tool as ``SR``), after ``_COMMON`` (the checks in scope); every
+    rank must print ``RANK_OK``."""
+    return SR.run_ranks(_COMMON + textwrap.dedent(body), data, model,
+                        tmp_path, RANK_TIMEOUT)
 
 
 _COMMON = """
@@ -90,21 +61,16 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
 from torch.utils._python_dispatch import TorchDispatchMode
 import repro_torch.config as TC
 from repro_torch import sharding as shlib
-from repro_torch.data.loader import FederatedDataLoader
-from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import attention_impl, build_model, recurrent
 from repro_torch.train import steps as TS
 from repro_torch.utils.pytree import tree_flatten_with_paths
 
-mesh = make_local_mesh(data=DATA, model=MODEL, device="cpu")
-
-
 def sharded(fn):
-    shlib.set_activation_mesh(mesh, batch_axes=("data",))
-    try:
-        return fn()
-    finally:
-        shlib.set_activation_mesh(None)
+    return SR.sharded(mesh, fn)
+
+
+def check_step(arch, seq, steps=1):
+    return SR.check_step(mesh, arch, seq, steps)
 
 
 def check_attention(B, S, H, KV, hd, window, chunk, exact):
@@ -137,36 +103,6 @@ def check_attention(B, S, H, KV, hd, window, chunk, exact):
             assert torch.equal(a, b), (i, err)
         else:
             assert err <= 2e-6 * max(1.0, float(b.abs().max())), (i, err)
-
-
-def check_step(arch, seq, steps=1):
-    cfg = TC.get_model_config(arch, smoke=True).replace(dtype="float32")
-    tt = TC.TrainConfig(global_batch=4, seq_len=seq, learning_rate=1e-2,
-                        warmup_steps=2, total_steps=10, grad_clip=1.0,
-                        microbatches=1)
-    plain = TS.get_train_step(cfg, tt, device="cpu")
-    step = TS.get_train_step(cfg, tt, mesh=mesh)
-    a = b = TS.make_train_state(build_model(cfg), tt, 3, device="cpu")
-    loader = FederatedDataLoader(cfg.vocab_size, tt.seq_len, 1,
-                                 tt.global_batch, seed=23, prefetch=1)
-    for t in range(steps):
-        batch = loader.next_batch(0)
-        a, ma = plain(a, batch)
-        b, mb = sharded(lambda: step(b, batch))
-        la, lb = float(ma["loss"]), float(mb["loss"])
-        assert abs(lb / la - 1) <= 1e-5, (arch, t, la, lb)
-        ga, gb = float(ma["grad_norm"]), float(mb["grad_norm"])
-        assert abs(gb / ga - 1) <= 2e-5, (arch, t, ga, gb)
-    got = dict(tree_flatten_with_paths(TS.full_tree(b)))
-    want = {k: w for k, w in tree_flatten_with_paths(a)
-            if k.startswith(".opt_state")}
-    # a leaf whose gradient vanishes (xLSTM's input-gate bias: the gate's
-    # exponent cancels against its stabiliser) holds round-off alone: an
-    # fp32 floor of 1e-8 of the largest moment
-    floor = 1e-8 * max(float(w.abs().max()) for w in want.values())
-    for k, w in want.items():
-        err = float((got[k] - w).abs().max())
-        assert err <= 2e-5 * float(w.abs().max()) + floor, (arch, k, err)
 """
 
 
