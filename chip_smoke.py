@@ -61,11 +61,14 @@ of 256 and 512 ranks on the card's device type (H2O-Danube-1.8B's
 ``decode_32k``; later pairs in ``DRYRUN_PAIRS``, Granite-MoE-1B-A400M's
 ``decode_32k`` on one node of eight cards among them), their roofline
 report, and a one-rank dry-run of the training configuration above,
-whose predicted peak is held within 5% of the peak the card measured;
+whose predicted peak is held within 5% of the peak the card measured,
+and five more pairs at full width and cut depth (``DRYRUN_CUT_PAIRS``),
+none of them, nor any other, with a view resharded by the trace;
 beside them, every family's sharded prefill, decode and train step on
 real gloo ranks of a (1, 2) and a (2, 2) mesh under this machine's
-torch, against the plain ones (``src_torch/tools/sharded_ranks.py``;
-phase ``sharded_ranks``).  It also folds a
+torch, and the layouts of ``sharded_ranks.LAYOUTS`` on their meshes,
+against the plain ones (``src_torch/tools/sharded_ranks.py``; phase
+``sharded_ranks``).  It also folds a
 50M-parameter x 16-client round at the benchmark's geometry (FedAvg,
 then median, trimmed mean and Krum on distinct payloads), times each
 kernel at its main path's shape beside its bound (``scatter_wsum`` also
@@ -3152,9 +3155,29 @@ DRYRUN_PAIRS = (
     ("xlstm-350m", "prefill_32k", ()),
     # one node of eight cards serving the MoE tensor-parallel
     ("granite-moe-1b-a400m", "decode_32k", ("--mesh", "1x8")))
-#: the MoE pairs: no view of theirs at models/mlp.py may take the relaxed
-#: rule (on real ranks such a view raises)
-DRYRUN_MOE_ARCHS = ("granite-moe-1b-a400m", "deepseek-v2-236b")
+#: pairs at full width and cut depth, (arch, shape, layers) on the 16x16
+#: group: the layouts whose heads do not divide "model" (the key-split
+#: attention's ``wo`` on each rank's rows, InternVL2's residual after its
+#: prefix, RecurrentGemma's gates at 4 periods, where their stacked weight
+#: is split inside the heads) and the decode against a cache whose slots
+#: lie on "data" (``long_500k``).  No pair of the phase may take a view the card's torch
+#: refuses (the trace reshards it; on real ranks it raises)
+DRYRUN_CUT_PAIRS = (
+    ("h2o-danube-1.8b", "long_500k", 1),
+    ("internvl2-1b", "prefill_32k", 1),
+    ("internvl2-1b", "train_4k", 1),
+    ("yi-34b", "train_4k", 1),
+    ("recurrentgemma-2b", "train_4k", 12))
+_CUT_PAIR = """
+import json, sys
+import repro_torch.launch.dryrun as D
+from repro_torch.config import get_model_config
+arch, shape, layers, out = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
+D.get_model_config = lambda a: get_model_config(a).replace(num_layers=layers)
+rec = dict(D.run_one(arch, shape, verbose=False), layers=layers)
+with open(out, "w") as f:
+    f.write(json.dumps(rec) + "\\n")
+"""
 #: xLSTM's counted FLOPs a device at most this many times its analytic
 #: count (the parallel form computes every key of a query's chunk, the
 #: analytic count the causal half)
@@ -3176,7 +3199,8 @@ print(json.dumps(rec))
 
 class DryrunProcs:
     """Phase ``dryrun``'s processes, started together: one for each of
-    :data:`DRYRUN_PAIRS` and the calibration."""
+    :data:`DRYRUN_PAIRS`, :data:`DRYRUN_CUT_PAIRS` and the
+    calibration."""
 
     def __init__(self, train: dict):
         import dataclasses
@@ -3191,6 +3215,11 @@ class DryrunProcs:
                 sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                 arch, "--shape", shape, *flags,
                 "--out", os.path.join(self.dir, f"pair{i}.jsonl")]
+        for i, (arch, shape, layers) in enumerate(DRYRUN_CUT_PAIRS,
+                                                  len(DRYRUN_PAIRS)):
+            cmds[f"pair{i}"] = [
+                sys.executable, "-c", _CUT_PAIR, arch, shape, str(layers),
+                os.path.join(self.dir, f"pair{i}.jsonl")]
         cmds["calibration"] = [sys.executable, "-c", _CALIBRATE, json.dumps(
             dataclasses.asdict(train["tcfg"]))]
         self.env, self.procs, self.logs = env, {}, {}
@@ -3225,12 +3254,13 @@ def phase_dryrun(card: str, train: dict, procs: DryrunProcs):
     process groups (fake tensors on the card's device type: no storage, no
     kernel), the roofline report of their records, and a one-rank dry-run
     of phase ``train``'s exact ``TrainConfig``, whose predicted peak is
-    held to the peak the card measured there.  The processes run at once
-    (started by ``procs``); a failed one fails the phase, as does a decode
-    pair that does not fit 80 GB, an xLSTM pair that counts more than
-    :data:`DRYRUN_XLSTM_FLOPS_MAX` times its analytic FLOPs, or a MoE pair
-    with a view at ``models/mlp.py`` that took the relaxed rule.  Each
-    pair's line lists its relaxed views by site."""
+    held to the peak the card measured there, and the pairs of
+    :data:`DRYRUN_CUT_PAIRS`.  The processes run at once (started by
+    ``procs``); a failed one fails the phase, as does a decode pair that
+    does not fit 80 GB, an xLSTM pair that counts more than
+    :data:`DRYRUN_XLSTM_FLOPS_MAX` times its analytic FLOPs, or any pair
+    with a view that took the relaxed rule.  Each pair's line lists its
+    relaxed views by site."""
     from repro_torch.launch.mesh import (HBM_BW, NET_BW, NVLINK_BW,
                                          PEAK_FLOPS_BF16)
 
@@ -3249,7 +3279,8 @@ def phase_dryrun(card: str, train: dict, procs: DryrunProcs):
             check(rc == 0, f"dryrun: {name} exited {rc}: "
                            f"{out[name][-3000:]}")
         recs = []
-        for i in range(len(DRYRUN_PAIRS)):
+        n_pairs = len(DRYRUN_PAIRS) + len(DRYRUN_CUT_PAIRS)
+        for i in range(n_pairs):
             with open(os.path.join(d, f"pair{i}.jsonl")) as f:
                 recs += [json.loads(line) for line in f]
         joined = os.path.join(d, "dryrun_results.jsonl")
@@ -3261,14 +3292,14 @@ def phase_dryrun(card: str, train: dict, procs: DryrunProcs):
             text=True, timeout=120, check=True).stdout
     finally:
         procs.stop()
-    check(len(recs) == len(DRYRUN_PAIRS)
-          and all(r["status"] == "ok" for r in recs),
+    check(len(recs) == n_pairs and all(r["status"] == "ok" for r in recs),
           f"dryrun: a pair is not ok: {[r.get('error') for r in recs]}")
     print(report, flush=True)
     for r in recs:
         pd = r["per_device"]
         emit("dryrun_pair", card=card, arch=r["arch"], shape=r["shape"],
-             mesh=r["mesh"], fl_round=r["fl_round"], devices=r["devices"],
+             mesh=r["mesh"], layers=r.get("layers"), fl_round=r["fl_round"],
+             devices=r["devices"],
              device_type=r["device_type"], roofline=r["roofline"],
              counted_flops_per_device=pd["counted_flops_raw"],
              analytic_flops_per_device=pd["analytic_flops"],
@@ -3292,11 +3323,9 @@ def phase_dryrun(card: str, train: dict, procs: DryrunProcs):
               or ratio <= DRYRUN_XLSTM_FLOPS_MAX,
               f"dryrun: {r['arch']} {r['shape']} counts {ratio:.2f}x its "
               f"analytic FLOPs")
-        moe = {site: n for site, n in r["relaxed_views"].items()
-               if site.startswith("models/mlp.py")}
-        check(r["arch"] not in DRYRUN_MOE_ARCHS or not moe,
+        check(not r["relaxed_views"],
               f"dryrun: {r['arch']} {r['shape']} {r['mesh']} resharded "
-              f"views at the MoE: {moe}")
+              f"views: {r['relaxed_views']}")
     cal = json.loads(out["calibration"].strip().splitlines()[-1])
     check(cal["status"] == "ok", f"dryrun: calibration {cal}")
     predicted = cal["per_device"]["peak_bytes_est"]
@@ -3344,15 +3373,16 @@ def run_sharded_ranks(busy=lambda: 0) -> dict:
     t0 = time.perf_counter()
     lines = SR.run_all(SR.ARCHS, SHARDED_MESHES,
                        jobs=lambda: cpus - busy(),
-                       timeout=SHARDED_BUDGET_S)
+                       timeout=SHARDED_BUDGET_S, layouts=SR.LAYOUTS)
     return dict(lines=lines, wall_s=time.perf_counter() - t0, cpus=cpus,
-                archs=SR.ARCHS, paths=SR.PATHS)
+                archs=SR.ARCHS, paths=SR.PATHS, layouts=SR.LAYOUTS)
 
 
 def phase_sharded_ranks(card: str, run: dict):
     """The sharded prefill, decode and train step of every family but the
-    quickstart MLP on real gloo ranks of a (1, 2) and a (2, 2) mesh, each
-    against the plain one, under this machine's torch (run by
+    quickstart MLP on real gloo ranks of a (1, 2) and a (2, 2) mesh, and
+    the layouts of ``sharded_ranks.LAYOUTS`` on their meshes, each against
+    the plain one, under this machine's torch (run by
     :func:`run_sharded_ranks` beside phase ``dryrun``'s processes): one
     line per (family, mesh, path) with ``ok``, the largest error and the
     seconds.  A failed check or rank, or a run past
@@ -3361,15 +3391,21 @@ def phase_sharded_ranks(card: str, run: dict):
                                                 r["path"]))
     for r in lines:
         emit("sharded_ranks_check", card=card, **r)
-    want = {(a, f"{d}x{m}", p) for a in run["archs"]
+    def key(arch, mesh, path, over):
+        return arch, mesh, path, json.dumps(over, sort_keys=True)
+
+    want = {key(a, f"{d}x{m}", p, {}) for a in run["archs"]
             for d, m in SHARDED_MESHES for p in run["paths"]}
-    got = {(r["arch"], r["mesh"], r["path"]) for r in lines if r["ok"]}
+    want |= {key(a, "x".join(map(str, mesh)), p, o)
+             for a, p, mesh, o in run["layouts"]}
+    got = {key(r["arch"], r["mesh"], r["path"], r.get("over", {}))
+           for r in lines if r["ok"]}
     emit("sharded_ranks", card=card, torch=torch.__version__,
          wall_s=run["wall_s"], cpus=run["cpus"], checks=len(lines),
          passed=len(got & want),
          max_err={p: max((r.get("max_err", 0.0) for r in lines
                           if r["path"] == p and r["ok"]), default=None)
-                  for p in run["paths"]})
+                  for p in sorted({r["path"] for r in lines})})
     bad = [r for r in lines if not r["ok"]]
     check(not bad and got == want,
           f"sharded_ranks: failed {[(r['arch'], r['mesh'], r['path'], r.get('where'), r.get('error', '')[:300]) for r in bad]}, missing {sorted(want - got)}")

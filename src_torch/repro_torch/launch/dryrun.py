@@ -54,6 +54,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import re
 import sys
 import time
 import traceback
@@ -197,16 +198,31 @@ def _ints(shape) -> Tuple:
     return tuple(v if isinstance(v, int) else str(v) for v in shape)
 
 
+def _innermost(frames) -> Optional[str]:
+    """The port's innermost of ``(filename, lineno)`` pairs (outermost
+    first), ``file:line`` under ``repro_torch/``, this module's own frames
+    skipped."""
+    return next((f"{name.rsplit('repro_torch/')[-1]}:{line}"
+                 for name, line in reversed(list(frames))
+                 if "repro_torch/" in name and name != __file__), None)
+
+
 def _port_site() -> str:
     """The port's innermost frame on the stack, ``file:line`` under
     ``repro_torch/`` (this module's own frames skipped); in a backward
-    pass, with the autograd node that runs the view."""
-    site = next((f"{f.filename.rsplit('repro_torch/')[-1]}:{f.lineno}"
-                 for f in reversed(traceback.extract_stack())
-                 if "repro_torch/" in f.filename and f.filename != __file__),
-                "unknown")
+    pass, with the autograd node that runs the view, and named by the
+    forward site that made the node where anomaly mode kept its stack
+    (``torch.autograd.set_detect_anomaly``, as ``dryrun_sites.py
+    --forward-sites`` runs it)."""
+    site = _innermost((f.filename, f.lineno)
+                      for f in traceback.extract_stack()) or "unknown"
     node = torch._C._current_autograd_node()
-    return site if node is None else f"{site} (backward: {node.name()})"
+    if node is None:
+        return site
+    made = "".join(node.metadata.get("traceback_", []))
+    site = _innermost((f, int(n)) for f, n in
+                      re.findall(r'File "([^"]+)", line (\d+)', made)) or site
+    return f"{site} (backward: {node.name()})"
 
 
 #: the keys of the views the strict rule refused in this process: DTensor

@@ -29,7 +29,7 @@ from repro_torch.models.base import (ParamSpec, apply_norm, apply_rope,
                                      norm_spec)
 from repro_torch.sharding import (batch_axes, batch_spec, cast_weight,
                                   constrain_heads, from_local, gather_dim,
-                                  model_dim, model_rank, to_local)
+                                  model_dim, model_rank, spec_of, to_local)
 
 
 def specs(cfg: ModelConfig) -> Dict:
@@ -98,6 +98,30 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.reshape(B * S, d) @ w.reshape(d, n * h)).view(B, S, n, h)
 
 
+def _unproject(ctx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsnh,nhd->bsd") as one matrix product: the transpose of
+    :func:`_project`.
+
+    A ctx whose sequence is split over "model" (the key-split attention's,
+    whose heads do not divide the axis) is multiplied on each rank's own
+    rows by the whole weight: the output lands in the residual's layout
+    with no collective, and its gradient comes back in ctx's.  DTensor's
+    product would flatten the split sequence, and in the backward view a
+    split of the flattened heads back into heads, which no placement
+    keeps.  Heads split over "model" flatten with the head dim as they
+    lie (the product's sum then pending over the axis)."""
+    B, S, n, h = ctx.shape
+    d = w.shape[-1]
+    if model_dim(ctx) == 1:
+        spec = batch_spec(ctx.shape, 1)
+        cl = to_local(ctx, spec)
+        wl = to_local(w, (None,) * 3, partial_grad=batch_axes() + ("model",))
+        b, s = cl.shape[0], cl.shape[1]
+        out = (cl.reshape(b * s, n * h) @ wl.reshape(n * h, d)).view(b, s, d)
+        return from_local(out, (B, S, d), spec[:2] + (None,))
+    return (ctx.reshape(B * S, n * h) @ w.reshape(n * h, d)).view(B, S, d)
+
+
 def apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
           positions: torch.Tensor, cache: Optional[Dict] = None,
           kind: str = ATTN, impl: str = "eager",
@@ -106,8 +130,8 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     if kind == MLA:
         return mla_apply(params, x, cfg, mode=mode, positions=positions,
                          cache=cache, max_len=max_len)
-    B, S, d = x.shape
-    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
     window = cfg.window if kind in (SWA, LOCAL_ATTN) else 0
 
     q = _project(x, cast_weight(params["wq"], x.dtype,
@@ -131,9 +155,11 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     elif mode == "decode":   # S == 1
         assert cache is not None
         pos = positions[:, 0] if positions.dim() == 2 else positions  # (B,)
-        if model_dim(cache["k"]) == 1:
+        axis = next((a for a in ("model", "data")
+                     if model_dim(cache["k"], a) == 1), None)
+        if axis is not None:
             ctx, new_cache = _decode_seq_split(q, {"k": k, "v": v}, cache,
-                                               pos, window)
+                                               pos, window, axis)
         else:
             cache_len = cache["k"].shape[1]
             slot = (torch.remainder(pos, cache_len) if window
@@ -152,8 +178,7 @@ def apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         raise ValueError(mode)
 
     wo = cast_weight(params["wo"], x.dtype, ("heads", "head_dim", "embed"))
-    y = ctx.reshape(B * S, H * hd) @ wo.reshape(H * hd, d)
-    return y.view(B, S, d), new_cache
+    return _unproject(ctx, wo), new_cache
 
 
 def _token_local(t: torch.Tensor) -> torch.Tensor:
@@ -163,10 +188,10 @@ def _token_local(t: torch.Tensor) -> torch.Tensor:
     return to_local(t, batch_spec(t.shape))
 
 
-def _write_own_shard(shards: Dict, token: Dict, slot: torch.Tensor
-                     ) -> Dict:
+def _write_own_shard(shards: Dict, token: Dict, slot: torch.Tensor,
+                     axis: str) -> Dict:
     """The reference's ``cache.at[bidx, slot].set(token)`` on the rank's
-    local shards of a cache whose sequence (dim 1) is split over "model":
+    local shards of a cache whose sequence (dim 1) is split over ``axis``:
     ``shards`` (b, s, ...) and ``token`` (b, ...) by leaf name, ``slot``
     (b,) global.  A rank writes only the rows whose slot lies in its range
     (the others keep their value) and nothing is gathered, as GSPMD keeps
@@ -174,7 +199,7 @@ def _write_own_shard(shards: Dict, token: Dict, slot: torch.Tensor
     out = {}
     for name, t in shards.items():
         s = t.shape[1]
-        lo = model_rank() * s
+        lo = model_rank(axis) * s
         at = torch.clamp(slot - lo, 0, s - 1)
         bidx = torch.arange(t.shape[0], device=t.device)
         new = token[name].to(t.dtype)
@@ -186,43 +211,62 @@ def _write_own_shard(shards: Dict, token: Dict, slot: torch.Tensor
 
 
 def _split_cache_step(cache: Dict, token: Dict, pos: torch.Tensor,
-                      window: int):
-    """The write of a decode step on a sequence-split cache: ``token`` the
-    step's entries (B,1,...) by leaf name, ``slot_pos`` aside.  Returns
-    ``(shards, pos_l, new_cache)``: the rank's new shards of every leaf
-    (``slot_pos`` included), its batch rows of ``pos``, and the new cache
-    as DTensors split as ``cache`` came.  The slot is the plain path's:
-    ``pos % len`` in a rotating window, else ``min(pos, len - 1)``."""
+                      window: int, axis: str = "model"):
+    """The write of a decode step on a cache whose sequence is split over
+    ``axis``: ``token`` the step's entries (B,1,...) by leaf name,
+    ``slot_pos`` aside.  Returns ``(shards, pos_l, new_cache)``: the
+    rank's new shards of every leaf (``slot_pos`` included), its batch
+    rows of ``pos``, and the new cache as DTensors split as ``cache``
+    came.  A token is placed as its leaf is, the sequence aside.  The
+    slot is the plain path's: ``pos % len`` in a rotating window, else
+    ``min(pos, len - 1)``."""
     cache_len = next(iter(cache.values())).shape[1]
     pos_l = _token_local(pos)
     slot = (torch.remainder(pos_l, cache_len) if window
             else torch.clamp(pos_l, max=cache_len - 1))
-    specs = {n: batch_spec(t.shape, 1) for n, t in cache.items()}
-    token = {n: _token_local(t[:, 0]) for n, t in token.items()}
+    specs = {n: spec_of(t) for n, t in cache.items()}
+    token = {n: to_local(t[:, 0], specs[n][:1] + specs[n][2:])
+             for n, t in token.items()}
     token["slot_pos"] = pos_l
     shards = _write_own_shard(
-        {n: to_local(t, specs[n]) for n, t in cache.items()}, token, slot)
+        {n: to_local(t, specs[n]) for n, t in cache.items()}, token, slot,
+        axis)
     return shards, pos_l, {n: from_local(t, cache[n].shape, specs[n])
                            for n, t in shards.items()}
 
 
 def _decode_seq_split(q, token: Dict, cache: Dict, pos: torch.Tensor,
-                      window: int):
+                      window: int, axis: str):
     """A decode step's attention on a cache whose sequence is split over
-    "model" (``rules_for_shape``'s decode rule, as the reference's
-    ``decode_32k``, whose GQA kv counts do not divide the axis): each rank
-    writes the token into its own shard and attends over its own slots
-    (``attention_impl.decode_attention_split``); the query's heads are
-    gathered once.  A split over "data" (``long_500k``'s) takes the plain
-    path.  ``token``: the step's k and v (B,1,KV,hd).  Returns ctx, whole
-    over "model", and the new cache, split as it came."""
-    shards, pos_l, new_cache = _split_cache_step(cache, token, pos, window)
-    ctx = attention_impl.decode_attention_split(
-        _token_local(q), shards["k"], shards["v"],
-        slot_pos=shards["slot_pos"], query_pos=pos_l, window=window)
+    ``axis`` (``rules_for_shape``'s decode rules: "model" in the
+    reference's ``decode_32k``, whose GQA kv counts do not divide the
+    axis; "data" in ``long_500k``, batch 1): each rank writes the token
+    into its own shard and attends over its own slots
+    (``attention_impl.decode_attention_split``, the softmax combined over
+    ``axis``).  Over "model" the query's heads are gathered once and ctx
+    comes back whole; over another axis a query whose heads are split over
+    "model" keeps them split, each rank reading the KV heads its own heads
+    read, and ctx comes back split as q, as ``wo``'s product takes it.
+    ``token``: the step's k and v (B,1,KV,hd).  Returns ctx and the new
+    cache, split as it came."""
+    shards, pos_l, new_cache = _split_cache_step(cache, token, pos, window,
+                                                 axis)
     B, _, H, _ = q.shape
-    shape = (B, 1, H, ctx.shape[-1])
-    return from_local(ctx, shape, batch_spec(shape)), new_cache
+    spec = batch_spec(q.shape, 2 if axis != "model" and model_dim(q) == 2
+                      else None)
+    ql = to_local(q, spec)
+    k, v = shards["k"], shards["v"]
+    n, KV = ql.shape[2], cache["k"].shape[2]
+    if n < H and k.shape[2] == KV:
+        # the KV head each of the rank's query heads reads (a copy of the
+        # rank's slots of a few heads: a long context's cache is a window)
+        idx = (model_rank() * n + torch.arange(n, device=k.device)) // (
+            H // KV)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    ctx = attention_impl.decode_attention_split(
+        ql, k, v, slot_pos=shards["slot_pos"], query_pos=pos_l,
+        window=window, axis=axis)
+    return from_local(ctx, (B, 1, H, ctx.shape[-1]), spec), new_cache
 
 
 def _fill_cache_from_prefill(cfg, k, v, positions, kind,
@@ -322,7 +366,7 @@ def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     Decode writes slot ``min(pos, cache_len - 1)``, as the reference does.
     """
     m = cfg.mla
-    B, S, d = x.shape
+    B, S, _ = x.shape
     H = cfg.num_heads
     nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
     dt = x.dtype
@@ -393,9 +437,7 @@ def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     else:
         raise ValueError(mode)
 
-    vdim = ctx.shape[-1]
-    y = ctx.reshape(B * S, H * vdim) @ params["wo"].to(dt).reshape(H * vdim, d)
-    return y.view(B, S, d), new_cache
+    return _unproject(ctx, params["wo"].to(dt)), new_cache
 
 
 def _mla_scores(q_abs, q_pe, ckv, kpe, slot_pos, pos, scale):

@@ -19,7 +19,8 @@ kernels of a model's prefill.
 Both satisfy the same contract and are cross-checked in the tests and on
 the card.  :func:`decode_attention` is plain torch: the reference computes
 it outside any Pallas kernel too; :func:`decode_attention_split` is its
-flash-decoding form over a cache whose slots are split over "model".
+flash-decoding form over a cache whose slots are split over a mesh axis
+("model" in ``decode_32k``, "data" in ``long_500k``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ from repro_torch.kernels.ref import NEG_INF
 from repro_torch.sharding import (batch_spec, constrain_scores, from_local,
                                   gather_seq, model_axis_size, model_dim,
                                   model_max, model_rank, model_sharded,
-                                  model_sum, seq_to_heads, to_local)
+                                  model_sum, scatter_seq, seq_to_heads,
+                                  to_local)
 
 IMPLS = ("eager", "flash")
 
@@ -150,9 +152,13 @@ def _head_local(q, k, v, g: int, *, window: int, causal: bool,
 def _key_split(q, k, v, *, window: int, causal: bool, chunk: int):
     """The reference's second layout, where the heads do not split over
     "model": the keys do (flash-decoding style).  Every rank holds every
-    query, scores its own keys, and the softmax's row max and row sum and
-    the partial value products are reduced over "model"; no score-shaped
-    tensor is gathered."""
+    query, scores its own keys, and the softmax's row max and row sum are
+    reduced over "model"; no score-shaped tensor is gathered.  The partial
+    value products are reduce-scattered over the sequence: ctx comes back
+    in the residual's layout (sequence over "model"), each rank's rows
+    whole over the heads, which ``wo``'s product takes on local shards
+    (``attention._unproject``; a split of the flattened heads could not
+    be viewed back into heads that do not divide the axis)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     ql = gather_seq(to_local(q, batch_spec(q.shape, 1)))
@@ -177,9 +183,9 @@ def _key_split(q, k, v, *, window: int, causal: bool, chunk: int):
         w = (p / den).to(q.dtype)
         del p
         ctx.append(torch.einsum("bkgqs,bskh->bqkgh", w, vl))
-    ctx = model_sum(torch.cat(ctx, dim=1), sum_grads=False)
-    return from_local(ctx.reshape(b, S, H, vl.shape[-1]),
-                      (B, S, H, v.shape[-1]), batch_spec(q.shape))
+    ctx = scatter_seq(torch.cat(ctx, dim=1))
+    return from_local(ctx.reshape(b, s, H, vl.shape[-1]),
+                      (B, S, H, v.shape[-1]), batch_spec(q.shape, 1))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -209,33 +215,36 @@ def _decode_scores(q, k_cache, slot_pos, query_pos, window: int):
     return torch.where(valid[:, None, None, :], scores, NEG_INF)
 
 
-def split_softmax_combine(scores: torch.Tensor, product) -> torch.Tensor:
+def split_softmax_combine(scores: torch.Tensor, product,
+                          axis: str = "model") -> torch.Tensor:
     """The softmax of the fp32 ``scores`` (..., s) over keys split across
-    "model" (the last dim holds this rank's), applied by ``product(p)`` to
-    the rank's values: the row max through ``model_max``, then the
-    unnormalised product and the exp-sum, in fp32, summed over "model" in
-    one all-reduce, then the division (flash-decoding's combine).  A rank
-    whose keys are all masked adds zeros."""
+    ``axis`` (the last dim holds this rank's), applied by ``product(p)``
+    to the rank's values: the row max through ``model_max``, then the
+    unnormalised product and the exp-sum, in fp32, summed over the axis
+    in one all-reduce, then the division (flash-decoding's combine).  A
+    rank whose keys are all masked adds zeros."""
     p = torch.exp(scores - model_max(torch.amax(scores, dim=-1,
-                                                keepdim=True)))
+                                                keepdim=True), axis))
     acc = model_sum(torch.cat([product(p), p.sum(-1)[..., None]], dim=-1),
-                    sum_grads=False)
+                    sum_grads=False, axis=axis)
     return acc[..., :-1] / acc[..., -1:]
 
 
 def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, *, slot_pos: torch.Tensor,
-                           query_pos: torch.Tensor, window: int = 0
-                           ) -> torch.Tensor:
+                           query_pos: torch.Tensor, window: int = 0,
+                           axis: str = "model") -> torch.Tensor:
     """:func:`decode_attention` on local tensors, where the cache's slots
-    are split over "model": q (B,1,H,hd) whole on every rank, k/v_cache
-    (B,s,KV,hd) and slot_pos (B,s) the rank's own slots.  Each rank scores
-    its slots (fp32) and the softmax is combined over the axis
-    (:func:`split_softmax_combine`); no cache-sized tensor moves.  Returns
-    the whole (B,1,H,hd_v) on every rank, cast to q's dtype."""
+    are split over ``axis``: q (B,1,H,hd) the rank's query heads (whole
+    over ``axis``), k/v_cache (B,s,KV,hd) the KV heads they read (query
+    head j reads KV head j // (H // KV)) and slot_pos (B,s), on the
+    rank's own slots.  Each rank scores its slots (fp32) and the softmax
+    is combined over the axis (:func:`split_softmax_combine`); no
+    cache-sized tensor moves.  Returns (B,1,H,hd_v) for q's heads on
+    every rank of the axis, cast to q's dtype."""
     scores = _decode_scores(q, k_cache, slot_pos, query_pos, window)
     v32 = v_cache.float()
     ctx = split_softmax_combine(
-        scores, lambda p: torch.einsum("bkgs,bskh->bkgh", p, v32))
+        scores, lambda p: torch.einsum("bkgs,bskh->bkgh", p, v32), axis)
     return ctx.to(q.dtype).reshape(q.shape[0], 1, q.shape[2],
                                    v_cache.shape[-1])

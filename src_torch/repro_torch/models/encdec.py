@@ -69,13 +69,13 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _out(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bsnh,nhd->bsd"); under a mesh as the self-attention's
-    output projection, one product of the heads flattened (the einsum's
-    own order puts a split head dim second, which torch 2.11 refuses)."""
+    output projection (``attention._unproject``: one product of the heads
+    flattened, where the einsum's own order puts a split head dim second,
+    which torch 2.11 refuses; a sequence split over "model" multiplied on
+    each rank's rows)."""
     if not on_mesh(ctx):
         return torch.einsum("bsnh,nhd->bsd", ctx, wo)
-    B, S, n, h = ctx.shape
-    y = ctx.reshape(B * S, n * h) @ wo.reshape(n * h, -1)
-    return y.view(B, S, -1)
+    return attention._unproject(ctx, wo)
 
 
 def cross_kv(params, enc_out: torch.Tensor

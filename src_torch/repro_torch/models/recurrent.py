@@ -65,9 +65,13 @@ def _block_diag_apply(w: torch.Tensor, x: torch.Tensor, heads: int
     Under a "model" axis whose size does not divide the heads, a width
     split over it cuts through heads, and the product over the split
     reshape would leave a pending partial sum (which torch 2.11 cannot add
-    a bias to): the width is gathered first and the product, whole on
-    every rank, taken back to the input's split (a local slice).  Heads
-    that divide the axis keep their split through the reshape."""
+    a bias to): the width is gathered first, the weight made whole (a
+    stacked weight of 8 MB or more comes split over a per-head dim, by
+    ``params_shardings``' salvage pass, and the product's gradient would
+    then come back split inside the heads, which no view into heads
+    keeps), and the product, whole on every rank, taken back to the
+    input's split (a local slice).  Heads that divide the axis keep their
+    split through the reshape."""
     per = w.shape[-1]
     back = None
     if model_sharded(x) and heads % model_axis_size() != 0:
@@ -75,7 +79,8 @@ def _block_diag_apply(w: torch.Tensor, x: torch.Tensor, heads: int
 
         back = [p if isinstance(p, Shard) else Replicate()
                 for p in x.placements]
-        x, w = gather_dim(x, -1), gather_dim(w, 0)
+        x = gather_dim(x, -1)
+        w = w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
     xh = x.reshape(x.shape[:-1] + (heads, per))
     y = torch.einsum("...hi,hij->...hj", xh, w.to(x.dtype)).reshape(x.shape)
     if back is not None:

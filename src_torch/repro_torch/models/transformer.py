@@ -201,13 +201,16 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, mode: str,
     # An embedding op, whose backward DTensor can place (an indexing's is
     # an accumulating index_put), from a table whole along the vocab: a
     # vocab-split table's masked lookup loses the batch split of the ids
-    x = constrain_batch(torch.nn.functional.embedding(
-        tokens, gather_dim(params["embed"], 0)).to(cfg.compute_dtype))
+    x = torch.nn.functional.embedding(
+        tokens, gather_dim(params["embed"], 0)).to(cfg.compute_dtype)
     n_prefix = 0
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
         n_prefix = extra_embeds.shape[1]
         S = S + n_prefix
+    # the residual's layout once the prefix is in place: a cat with a
+    # sequence split over "model" would leave the rows whole
+    x = constrain_batch(x)
 
     if mode == "decode":
         assert cache is not None and S == 1

@@ -430,6 +430,19 @@ def batch_spec(shape: Sequence[int], model_dim: Optional[int] = None
     return tuple(entries)
 
 
+def spec_of(x) -> Spec:
+    """The spec of DTensor ``x``'s placements: each dim over the mesh
+    axes that shard it (major first), the rest whole."""
+    from torch.distributed.tensor import Shard
+
+    entries: list = [[] for _ in range(x.ndim)]
+    for name, p in zip(mesh_axis_names(x.device_mesh), x.placements):
+        if isinstance(p, Shard):
+            entries[p.dim].append(name)
+    return tuple(None if not e else e[0] if len(e) == 1 else tuple(e)
+                 for e in entries)
+
+
 def to_local(x, spec: Spec, partial_grad: Sequence[str] = ()
              ) -> torch.Tensor:
     """The rank's shard of the DTensor ``x`` placed by ``spec`` on the
@@ -490,23 +503,24 @@ def batch_ranks() -> int:
     return _batch_prod(_mesh_axis_sizes(_ACT_MESH[0]), _ACT_MESH[1])
 
 
-def model_dim(x) -> Optional[int]:
-    """The dim of DTensor ``x`` that the activation mesh's "model" axis
-    splits (None: none, or not a DTensor under a "model" axis)."""
+def model_dim(x, axis: str = "model") -> Optional[int]:
+    """The dim of DTensor ``x`` that the activation mesh's ``axis``
+    splits (None: none, or not a DTensor under such an axis of more than
+    one rank)."""
     from torch.distributed.tensor import Shard
 
-    if not model_sharded(x):
+    if not on_mesh(x) or _mesh_axis_sizes(_ACT_MESH[0]).get(axis, 1) <= 1:
         return None
-    p = x.placements[mesh_axis_names(x.device_mesh).index("model")]
+    p = x.placements[mesh_axis_names(x.device_mesh).index(axis)]
     return p.dim if isinstance(p, Shard) else None
 
 
-def model_rank() -> int:
-    """This rank's coordinate on the activation mesh's "model" axis (0
-    where it has none)."""
-    if "model" not in mesh_axis_names(_ACT_MESH[0]):
+def model_rank(axis: str = "model") -> int:
+    """This rank's coordinate on the activation mesh's ``axis`` (0 where
+    it has none)."""
+    if axis not in mesh_axis_names(_ACT_MESH[0]):
         return 0
-    return _ACT_MESH[0].get_local_rank("model")
+    return _ACT_MESH[0].get_local_rank(axis)
 
 
 def _group(axis: str) -> str:
@@ -541,10 +555,11 @@ class _AllReduce(torch.autograd.Function):
         return g, None, None
 
 
-def model_sum(x: torch.Tensor, sum_grads: bool) -> torch.Tensor:
-    """All-reduce of the local ``x`` over "model" (see :class:`_AllReduce`
-    for ``sum_grads``)."""
-    return _AllReduce.apply(x, _model_group(), sum_grads)
+def model_sum(x: torch.Tensor, sum_grads: bool,
+              axis: str = "model") -> torch.Tensor:
+    """All-reduce of the local ``x`` over ``axis`` (see
+    :class:`_AllReduce` for ``sum_grads``)."""
+    return _AllReduce.apply(x, _group(axis), sum_grads)
 
 
 def axes_sum(x: torch.Tensor, axes: Sequence[str],
@@ -558,10 +573,10 @@ def axes_sum(x: torch.Tensor, axes: Sequence[str],
     return x
 
 
-def model_max(x: torch.Tensor) -> torch.Tensor:
-    """The max of the local ``x`` over "model", outside autograd (a
+def model_max(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """The max of the local ``x`` over ``axis``, outside autograd (a
     softmax's shift, whose gradient is zero)."""
-    return _all_reduce(x.detach(), "max", _model_group())
+    return _all_reduce(x.detach(), "max", _group(axis))
 
 
 class _AllToAll(torch.autograd.Function):
@@ -614,6 +629,30 @@ def gather_seq(t: torch.Tensor) -> torch.Tensor:
     whole (B, S, ...) on every rank."""
     m = model_axis_size()
     y = _GatherSeq.apply(t.movedim(1, 0), _model_group(), m)
+    return y.movedim(0, 1)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter of dim 0 over a group; the backward all-gathers."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.group, ctx.size = group, size
+        return _FC.wait_tensor(_FC.reduce_scatter_tensor(
+            x.contiguous(), "sum", size, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _FC.wait_tensor(_FC.all_gather_into_tensor(
+            g.contiguous(), ctx.size, ctx.group)), None, None
+
+
+def scatter_seq(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, ...) partial sums on each rank -> (B, S/m, ...): this rank's
+    rows of their sum over "model" (the transpose of
+    :func:`gather_seq`)."""
+    m = model_axis_size()
+    y = _ScatterSeq.apply(t.movedim(1, 0), _model_group(), m)
     return y.movedim(0, 1)
 
 

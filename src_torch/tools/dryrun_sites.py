@@ -6,11 +6,17 @@ call sites (``file:line``, the last three frames in ``repro_torch``).
 ``--device cpu`` traces CPU tensors; ``--forward-sites`` charges a
 backward pass's collective to the forward call site whose autograd node
 runs it (autograd's anomaly mode records those stacks; slower), marked
-``bwd``.  Prints the record's per-device totals, then the top sites by
-bytes.  Run from the root of a checkout:
+``bwd``, and names a backward view of ``relaxed_views`` by that forward
+site.  It holds a later torch to torch 2.11's rule for a flattening view
+(``sharded_ranks.strict_flatten``), as the card's torch counts the
+record's ``relaxed_views``.  Prints the record's per-device totals and
+relaxed views, then the top sites by bytes.  Run from the root of a
+checkout:
 
     python3 src_torch/tools/dryrun_sites.py --arch h2o-danube-1.8b --layers 2 --device cpu
     python3 src_torch/tools/dryrun_sites.py --arch deepseek-v2-236b --shape decode_32k
+    python3 src_torch/tools/dryrun_sites.py --arch yi-34b --layers 1 \\
+        --device cpu --forward-sites
 """
 import argparse
 import collections
@@ -22,8 +28,8 @@ import traceback
 
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                ".."))
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [os.path.join(HERE, ".."), HERE]
 
 
 def _site(frames) -> str:
@@ -80,6 +86,7 @@ def trace_sites(arch: str, shape: str, *, mesh_shape=(16, 16), device=None,
 def main(argv=None) -> None:
     from repro_torch.config import INPUT_SHAPES, get_model_config
     from repro_torch.launch import dryrun
+    from sharded_ranks import strict_flatten
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="h2o-danube-1.8b")
@@ -90,6 +97,7 @@ def main(argv=None) -> None:
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--forward-sites", action="store_true")
     args = ap.parse_args(argv)
+    strict_flatten()
 
     if args.layers is not None:
         dryrun.get_model_config = lambda a: get_model_config(a).replace(
@@ -103,7 +111,8 @@ def main(argv=None) -> None:
         sites[(name, where)] += nbytes
     print(json.dumps({k: rec.get(k) for k in ("arch", "shape", "mesh",
                                               "status", "error", "where",
-                                              "per_device", "trace_s")}))
+                                              "per_device", "trace_s",
+                                              "relaxed_views")}))
     total = sum(sites.values()) or 1.0
     for (name, where), nbytes in sites.most_common(args.top):
         print(f"{nbytes / 1e9:12.3f} GB {100 * nbytes / total:5.1f}% "

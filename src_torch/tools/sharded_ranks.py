@@ -16,6 +16,19 @@ fp32, with inputs from :meth:`repro_torch.models.api.Model.make_batch`
   largest entry plus 1e-8 of the largest moment of all (a leaf whose
   gradient vanishes holds round-off alone).
 
+:data:`LAYOUTS` adds the layouts the full configurations take on 16
+ranks where their head counts do not divide "model", each at a smoke
+size whose counts fail to divide its mesh's axis the same way: the
+key-split attention and ``wo``'s product on each rank's rows (Yi-34B's
+56 heads, RecurrentGemma's 10; prefill and step), InternVL2's residual
+after its prefix embeddings (14 heads), and ``long_decode``: 10 greedy
+steps at batch 1 under the ``long_500k`` rules (the cache's slots over
+"data", the query heads over "model": danube's 32 of 8 KV heads, 2 a
+rank), at the decode's tolerance; and ``block_diag``: RecurrentGemma's
+block-diagonal gates on 3 heads over 2 ranks, the weight split inside the
+heads (as ``params_shardings``' salvage pass splits a stacked weight of
+8 MB or more), output and gradients within 1e-6 of the plain ones.
+
 A rank process runs ``header + body``: the header starts the group on a
 ``FileStore`` and its ``mesh`` (:func:`start`), which the checks below
 take first.  Every rank must print ``RANK_OK``.
@@ -27,6 +40,7 @@ that run at once, default the CPU count):
   python3 src_torch/tools/sharded_ranks.py --mesh 1x2 --mesh 2x2
   python3 src_torch/tools/sharded_ranks.py --arch granite-moe-1b-a400m \\
       --mesh 1x4 --paths decode --steps 10
+  python3 src_torch/tools/sharded_ranks.py --layouts
 
 It prints one JSON line per (arch, mesh, path) -- ``ok``, the largest
 error and its tolerance, the seconds -- and exits 1 if any failed.
@@ -57,6 +71,29 @@ from repro_torch.config import list_archs  # noqa: E402
 #: every registered family but the quickstart MLP (the dry-run's rule)
 ARCHS = tuple(a for a in list_archs() if a != "flower-quickstart")
 PATHS = ("prefill", "decode", "step")
+#: heads that split neither 2 ranks of "model" nor their KV heads over
+#: them: the key-split attention, as Yi-34B's 56 / 8, InternVL2's 14 / 2
+#: and RecurrentGemma's 10 / 1 on 16 ranks (on the families' (1, 2) ranks:
+#: no rank start-up of its own)
+KEY_SPLIT_HEADS = dict(num_heads=3, num_kv_heads=1, head_dim=32)
+#: RecurrentGemma's: the RG-LRU's width, split over 2 ranks, cut into the
+#: heads
+RG_KEY_SPLIT_HEADS = dict(KEY_SPLIT_HEADS, lru_width=96)
+#: 2 query heads a rank of 2, one KV head: as danube's 32 / 8 on 16
+LONG_DECODE_HEADS = dict(num_heads=4, num_kv_heads=1)
+#: the repaired layouts: (arch, path, mesh, config overrides)
+LAYOUTS = (
+    ("yi-34b", "prefill", (1, 2), KEY_SPLIT_HEADS),
+    ("yi-34b", "step", (1, 2), KEY_SPLIT_HEADS),
+    ("recurrentgemma-2b", "step", (1, 2), RG_KEY_SPLIT_HEADS),
+    ("internvl2-1b", "prefill", (1, 2), KEY_SPLIT_HEADS),
+    ("internvl2-1b", "step", (1, 2), KEY_SPLIT_HEADS),
+    ("h2o-danube-1.8b", "long_decode", (2, 2), LONG_DECODE_HEADS),
+    ("recurrentgemma-2b", "block_diag", (1, 2), {}),
+)
+BLOCK_DIAG_TOL = 1e-6
+#: the long decode's steps
+LONG_DECODE_STEPS = 10
 #: the prefill's and the train step's sequence length
 SEQ = 32
 PREFILL_TOL, DECODE_TOL = 1e-5, 2e-6
@@ -266,18 +303,19 @@ def decode_cache_len(cfg, prompt: int, steps: int) -> int:
     return -(-need // 12) * 12
 
 
-def decode_setup(mesh, arch: str, B: int, L: int, prompt: int, **over):
+def decode_setup(mesh, arch: str, B: int, L: int, prompt: int,
+                 shape: str = "decode_32k", **over):
     """``(cfg, model, params, placed params, last logits, cache, placed
     cache)``: the plain prefill of a ``prompt``-token batch (with its
     embeddings) into an ``L``-slot cache, the params and cache placed by
-    the ``decode_32k`` rules."""
+    ``shape``'s rules."""
     import repro_torch.config as TC
     from repro_torch.launch.shardings import (cache_shardings,
                                               params_shardings,
                                               rules_for_shape)
     from repro_torch.train import steps as TS
 
-    rules = rules_for_shape(TC.INPUT_SHAPES["decode_32k"])
+    rules = rules_for_shape(TC.INPUT_SHAPES[shape])
     cfg, model = smoke(arch, **over)
     params = model.init(3, device="cpu")
     batch = _torch_batch(model.make_batch(
@@ -291,9 +329,11 @@ def decode_setup(mesh, arch: str, B: int, L: int, prompt: int, **over):
 
 
 def check_decode(mesh, arch: str, B: int = 2, prompt: int = 7,
-                 steps: int = 4, **over) -> Dict:
-    """Greedy decode steps, sharded and plain, each from its own cache:
-    the logits within 2e-6 of the largest, the same ids."""
+                 steps: int = 4, shape: str = "decode_32k",
+                 **over) -> Dict:
+    """Greedy decode steps under ``shape``'s rules, sharded and plain,
+    each from its own cache: the logits within 2e-6 of the largest, the
+    same ids."""
     import torch
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -304,10 +344,10 @@ def check_decode(mesh, arch: str, B: int = 2, prompt: int = 7,
     cfg, _ = smoke(arch, **over)
     L = decode_cache_len(cfg, prompt, steps)
     cfg, model, params, p_d, last, cache, c_d = decode_setup(
-        mesh, arch, B, L, prompt, **over)
+        mesh, arch, B, L, prompt, shape, **over)
     decode = TS.make_decode_step(model)
     t_sh = batch_shardings({"tokens": (B, 1)}, mesh, rules=rules_for_shape(
-        TC.INPUT_SHAPES["decode_32k"]))["tokens"]
+        TC.INPUT_SHAPES[shape]))["tokens"]
     tok = torch.argmax(last, -1)[:, None]
     worst = 0.0
     for t in range(steps):
@@ -372,22 +412,67 @@ def check_step(mesh, arch: str, seq: int = SEQ, steps: int = 1, B: int = 4,
             "grad_norm_rel_err": gnorm_err, "moments_share_of_tol": share}
 
 
-def check_family(mesh, arch: str, paths: Sequence[str] = PATHS,
-                 decode_steps: int = 4) -> bool:
-    """Each of ``paths`` for ``arch``, one after another; rank 0 prints a
-    result line for each.  A path that raises is reported and the next one
-    runs (every rank raises alike: the ranks hold the same gathered
-    values).  Returns whether every path passed."""
+def check_block_diag(mesh) -> Dict:
+    """``recurrent._block_diag_apply`` on 3 heads of 4, which a "model"
+    axis of 2 does not divide, the width split over the axis and the
+    weight split over each per-head dim in turn: output and the gradients
+    of x and w against the plain ones."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import recurrent
+
+    heads, per = 3, 4
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 6, heads * per, generator=g)
+    w = torch.randn(heads, per, per, generator=g)
+    ct = torch.randn(2, 6, heads * per, generator=g)
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = recurrent._block_diag_apply(wp, xp, heads)
+    (want * ct).sum().backward()
+    worst = 0.0
+    for dim in (1, 2):
+        xd = distribute_tensor(x, mesh, [Replicate(), Shard(2)]
+                               ).requires_grad_()
+        wd = distribute_tensor(w, mesh, [Replicate(), Shard(dim)]
+                               ).requires_grad_()
+
+        def run():
+            y = recurrent._block_diag_apply(wd, xd, heads)
+            (y * distribute_tensor(ct, mesh, y.placements)).sum().backward()
+            return y
+
+        y = sharded(mesh, run)
+        for name, got, ref in (("y", y, want), ("dx", xd.grad, xp.grad),
+                               ("dw", wd.grad, wp.grad)):
+            err = float((got.full_tensor() - ref).abs().max())
+            _check(err <= BLOCK_DIAG_TOL, "block_diag", dim, name, err)
+            worst = max(worst, err)
+    return {"max_err": worst, "tol": BLOCK_DIAG_TOL}
+
+
+def run_checks(mesh, checks: Sequence[Tuple[str, str, Dict]],
+               decode_steps: int = 4) -> bool:
+    """Each ``(arch, path, config overrides)`` of ``checks``, one after
+    another; rank 0 prints a result line for each.  A check that raises
+    is reported and the next one runs (every rank raises alike: the ranks
+    hold the same gathered values).  Returns whether every check
+    passed."""
     import torch.distributed as dist
 
-    runs = {"prefill": lambda: check_prefill(mesh, arch),
-            "decode": lambda: check_decode(mesh, arch, steps=decode_steps),
-            "step": lambda: check_step(mesh, arch)}
+    runs = {"prefill": lambda arch, over: check_prefill(mesh, arch, **over),
+            "decode": lambda arch, over: check_decode(
+                mesh, arch, steps=decode_steps, **over),
+            "step": lambda arch, over: check_step(mesh, arch, **over),
+            "long_decode": lambda arch, over: check_decode(
+                mesh, arch, B=1, steps=LONG_DECODE_STEPS,
+                shape="long_500k", **over),
+            "block_diag": lambda arch, over: check_block_diag(mesh, **over)}
     ok_all = True
-    for path in paths:
+    for arch, path, over in checks:
         t0 = time.perf_counter()
         try:
-            res = dict(runs[path](), ok=True)
+            res = dict(runs[path](arch, over), ok=True)
         except Exception as e:  # noqa: BLE001 -- one path's failure is its line
             ok_all = False
             tb = traceback.extract_tb(e.__traceback__)
@@ -396,7 +481,7 @@ def check_family(mesh, arch: str, paths: Sequence[str] = PATHS,
             res = {"ok": False, "error": f"{type(e).__name__}: {e}"[:1500],
                    "where": f"{where.filename.rsplit('src_torch/')[-1]}"
                             f":{where.lineno}"}
-        res = dict(arch=arch, path=path,
+        res = dict(arch=arch, path=path, over=over,
                    seconds=round(time.perf_counter() - t0, 2), **res)
         if dist.get_rank() == 0:
             print(RESULT + json.dumps(res), flush=True)
@@ -406,13 +491,12 @@ def check_family(mesh, arch: str, paths: Sequence[str] = PATHS,
 # ---------------------------------------------------------------------------
 # every family on every mesh: a job a mesh, the meshes in parallel
 # ---------------------------------------------------------------------------
-def _job(archs: Sequence[str], data: int, model: int, paths: Sequence[str],
+def _job(checks: Sequence[Tuple[str, str, Dict]], data: int, model: int,
          decode_steps: int, workdir, timeout: float) -> List[Dict]:
-    """Every arch's checks on one set of ranks (a rank's start-up, the
-    group and the first sharded ops, is most of a family's time)."""
-    body = (f"import sys\nok = all([SR.check_family(mesh, arch, "
-            f"{tuple(paths)!r}, {decode_steps}) for arch in "
-            f"{tuple(archs)!r}])\nif not ok:\n    sys.exit(1)\n")
+    """Every check of one mesh on one set of ranks (a rank's start-up,
+    the group and the first sharded ops, is most of a family's time)."""
+    body = (f"import sys\nif not SR.run_checks(mesh, {list(checks)!r}, "
+            f"{decode_steps}):\n    sys.exit(1)\n")
     t0 = time.perf_counter()
     try:
         outs = run_ranks(body, data, model, workdir, timeout)
@@ -424,13 +508,13 @@ def _job(archs: Sequence[str], data: int, model: int, paths: Sequence[str],
     if failure is not None:
         # a rank that died: the paths it did not report failed, with its
         # output
-        seen = {(r["arch"], r["path"]) for r in lines}
-        lines += [{"arch": a, "path": p, "ok": False,
+        seen = {(r["arch"], r["path"], repr(r["over"])) for r in lines}
+        lines += [{"arch": a, "path": p, "over": o, "ok": False,
                    "error": failure[-1500:]}
-                  for a in archs for p in paths if (a, p) not in seen]
+                  for a, p, o in checks if (a, p, repr(o)) not in seen]
         if all(r["ok"] for r in lines):
-            lines.append({"arch": archs[-1], "path": "ranks", "ok": False,
-                          "error": failure[-1500:]})
+            lines.append({"arch": checks[-1][0], "path": "ranks",
+                          "ok": False, "error": failure[-1500:]})
     for r in lines:
         r["mesh"] = f"{data}x{model}"
         r["job_s"] = round(time.perf_counter() - t0, 2)
@@ -444,23 +528,28 @@ def _cpus() -> int:
 def run_all(archs: Sequence[str], meshes: Sequence[Tuple[int, int]],
             paths: Sequence[str] = PATHS, decode_steps: int = 4,
             jobs=None, timeout: float = 600, workdir=None,
-            emit=None) -> List[Dict]:
-    """Every arch's checks on each mesh: a job a mesh, the largest first,
-    as many ranks at once as ``jobs`` allows: a count, or a function that
+            emit=None, layouts: Sequence = ()) -> List[Dict]:
+    """Every arch's checks on each mesh, and each of ``layouts`` (as
+    :data:`LAYOUTS`) on its own mesh: a job a mesh, the largest first, as
+    many ranks at once as ``jobs`` allows: a count, or a function that
     returns the count free now (polled); default the CPUs this process
     may use.  ``emit`` sees each result line as its job ends.  Returns
     the lines."""
     total = _cpus()
     cap = jobs if callable(jobs) else (lambda: jobs or total)
-    todo = sorted(meshes, key=lambda m: -m[0] * m[1])
+    by_mesh: Dict[Tuple[int, int], List] = {
+        tuple(m): [(a, p, {}) for a in archs for p in paths] for m in meshes}
+    for arch, path, mesh, over in layouts:
+        by_mesh.setdefault(tuple(mesh), []).append((arch, path, dict(over)))
+    todo = sorted(by_mesh, key=lambda m: -m[0] * m[1])
     results: List[Dict] = []
     lock = threading.Condition()
     busy = [0]
 
     def one(data, model):
         try:
-            lines = _job(archs, data, model, paths, decode_steps, workdir,
-                         timeout)
+            lines = _job(by_mesh[data, model], data, model, decode_steps,
+                         workdir, timeout)
         finally:
             with lock:
                 busy[0] -= data * model
@@ -511,6 +600,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--timeout", type=float, default=600,
                     help="seconds a mesh's ranks may take")
     ap.add_argument("--out", default=None, help="also write the lines here")
+    ap.add_argument("--layouts", action="store_true",
+                    help="run LAYOUTS, each on its own mesh, instead of "
+                         "the families")
     args = ap.parse_args(argv)
     paths = [p for p in args.paths.split(",") if p]
     bad = set(paths) - set(PATHS)
@@ -521,9 +613,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(json.dumps(r), flush=True)
 
     t0 = time.perf_counter()
-    lines = run_all(args.arch or ARCHS, args.mesh or [(1, 2), (2, 2)],
-                    paths, args.steps, args.jobs, args.timeout,
-                    emit=emit)
+    if args.layouts:
+        lines = run_all((), (), jobs=args.jobs, timeout=args.timeout,
+                        emit=emit, layouts=LAYOUTS)
+    else:
+        lines = run_all(args.arch or ARCHS, args.mesh or [(1, 2), (2, 2)],
+                        paths, args.steps, args.jobs, args.timeout,
+                        emit=emit)
     if args.out:
         with open(args.out, "w") as f:
             f.writelines(json.dumps(r) + "\n" for r in lines)
