@@ -1248,14 +1248,29 @@ def _flash_cases():
     for f in (FLASH_SERVE, FLASH_SERVE_RG) + tuple(FLASH_FAMILIES.values()):
         grid.append((f["B"], f["S"], f["H"], f["KV"], f["hd"], f["window"],
                      f["causal"]))
-    # the tensor-core kernel's tile edges (64 keys, 32 at hd 256; 64-row q
-    # blocks): S one past, one short of and between tiles, and windows
-    # whose lower edge falls inside a key tile
+    # the earlier mma.sync kernel's tile edges (64 keys, 32 at hd 256;
+    # 64-row q blocks), kept as cases: S one past, one short of and between
+    # tiles, and windows whose lower edge falls inside a key tile
     for hd in (32, 80, 128, 256):
         for S, window in ((65, 0), (127, 37), (200, 100), (333, 65),
                           (1000, 257)):
             grid.append((2, S, 8, 2, hd, window, True))
         grid.append((1, 200, 4, 4, hd, 37, False))
+    # the wgmma kernel's tile edges (192-row q blocks up to hd 80, 128
+    # above; 128-key tiles, 64 at hd 256): S one short of, at and one past
+    # a query block and a key tile, causal and not; windows whose lower
+    # edge falls inside a key tile, one key past its start and one before
+    # its end
+    from repro_torch.kernels import flash_attention as FA
+
+    for hd in (16, 64, 80, 128, 256):
+        rows, keys = FA.tc_rows(hd), FA.tc_keys(hd)
+        for S in sorted({keys - 1, keys, keys + 1, rows - 1, rows,
+                         rows + 1, 2 * rows + 1}):
+            for causal in (True, False):
+                grid.append((2, S, 8, 2, hd, 0, causal))
+        for window in (keys // 2 + 3, keys + 1, 2 * keys - 1, rows + 5):
+            grid.append((1, 3 * rows + 7, 4, 1, hd, window, True))
     return grid
 
 
@@ -1317,6 +1332,16 @@ def phase_flash_vs_twin(dev):
         check(bool((got[:, 63:] == 0).all()) and bool((got[:, :63] != 0).any()),
               f"flash fully-masked rows {dtype}: masked rows are not 0")
         masked += 1
+    # query blocks whose every key is masked: causal with a negative window
+    # (kp <= qp and kp > qp + 5) leaves no row a key, though the kernels
+    # visit the tiles [qp + 6, qp] would span; every row must be exactly 0
+    for dtype, tol in FLASH_TOL.items():
+        for hd in (64, 128, 256):
+            q, k, v = _flash_inputs(gen, 1, 300, 4, 2, hd, dtype, dev)
+            got = FA.flash_attention(q, k, v, causal=True, window=-5)
+            check(bool((got == 0).all()),
+                  f"flash fully-masked blocks {dtype} hd{hd}: not all 0")
+            masked += 1
     per_dtype = cases // 2 + masked // 2
     routes = {r: FA.LAUNCHES[f"flash_attention.{r}"]
               for r in FA.ROUTES.values()}
@@ -1506,13 +1531,17 @@ def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
          route=FA.flash_route(q.dtype), kernel_ms=kernel_ms,
          kernel_tflops=flops / kernel_ms / 1e9, library_ms=library_ms,
          library_tflops=flops / library_ms / 1e9, plain_ms=plain_ms,
-         bound_ms=bound_ms, bound_by=bound_by, fp32_core_bound_ms=fp32_ms,
-         gflop=flops / 1e9, routes=routes, max_abs_diff=err,
-         library_max_abs_diff_vs_twin=lib_err)
+         bound_ms=bound_ms, bound_by=bound_by,
+         share_of_bound=bound_ms / kernel_ms,
+         kernel_over_library=kernel_ms / library_ms,
+         fp32_core_bound_ms=fp32_ms, gflop=flops / 1e9, routes=routes,
+         max_abs_diff=err, library_max_abs_diff_vs_twin=lib_err)
     del q, k, v, got, twin, lib, mask
     torch.cuda.empty_cache()
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, shape=shape,
+                bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / kernel_ms,
+                kernel_over_library=kernel_ms / library_ms, shape=shape,
                 routes=routes, max_abs_diff=err)
 
 
@@ -4010,6 +4039,11 @@ def main() -> int:
         # kernel)
         dict(name="flash_attention", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:94",
+             design="bf16: wgmma products (S = Q K^T from shared memory, "
+                    "O += P V with P from registers) fed by TMA through a "
+                    "2-stage mbarrier ring, one producer warp and two or "
+                    "three consumer warpgroups of 64 rows (setmaxnreg), a "
+                    "persistent grid; fp32: the CUDA-core kernel",
              launches=flash_launches + rg_launches["flash_attention"]
              + sum(fam_launches.values()),
              launches_by_path={
@@ -4051,7 +4085,8 @@ def main() -> int:
              replaces="src/repro/kernels/secagg_mask.py:36",
              max_abs_diff=max(secagg_diff, secagg["max_abs_diff"])),
     ]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    keys = ("name", "route", "source", "replaces", "design", "launches",
+            "max_abs_err",
             "max_abs_diff", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "share_of_bound", "gb_per_s", "trim_sum", "shape",
             "launches_by_path", "launches_by_route",

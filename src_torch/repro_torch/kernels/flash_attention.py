@@ -6,9 +6,16 @@ kernels, replacing the Pallas TPU kernel
   ``csrc/flash_attention.cu`` (built by ``nvcc`` for ``sm_90a`` at first
   use, see :mod:`repro_torch.kernels._build`) or raises; it never falls
   back.  The route is chosen by dtype alone (:func:`flash_route`): bf16
-  runs on the tensor cores (``mma.sync`` with fp32 accumulation, P rounded
-  to bf16 for the value product), fp32 on the CUDA cores.  On a CPU tensor
-  it runs :func:`flash_attention_plain`.
+  runs on the tensor cores (Hopper's ``wgmma`` with fp32 accumulation, fed
+  by TMA through an ``mbarrier`` ring by a producer warp, two or three
+  consumer warpgroups, a persistent grid; P rounded to bf16 for the value
+  product), fp32 on the CUDA cores.  On a CPU tensor it runs :func:`flash_attention_plain`.
+- The tensor-core kernel's tiles (:func:`tc_rows`, :func:`tc_keys`,
+  :data:`TC_STAGES`, :func:`tc_slab`, :func:`tc_padded`,
+  :func:`tc_smem_bytes`, :func:`tc_registers`) are mirrored here in
+  Python, and its TMA tensor maps are computed here (:func:`tma_params`:
+  dims, byte strides and box, checked against TMA's rules and encoded by
+  the library), so that the CPU tests check them.
 - :func:`flash_attention_plain` is the twin: plain PyTorch in the Pallas
   kernel's arithmetic -- the reference's block rule (:func:`_choose_block`,
   the sequence padded to the blocks' lcm), an fp32 online softmax over kv
@@ -48,13 +55,20 @@ ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 LAUNCHES = {"flash_attention": 0,
             **{f"flash_attention.{r}": 0 for r in ROUTES.values()}}
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
-#: a shared-memory row's padding in elements, in the tensor-core kernel
-#: (``tc::`` in ``csrc/flash_attention.cu``)
-TC_PAD = 8
+#: the tensor-core kernel's tiles start on this many bytes: the 128-byte
+#: swizzle's atom (8 rows of 128 bytes), which TMA and wgmma both need
+TC_ALIGN = 1024
+#: the tensor-core kernel's mbarriers, after its tiles, in bytes
+TC_BARRIER_BYTES = 128
 #: the shared memory one block may use on Hopper, in bytes
 SMEM_LIMIT = 232_448
+#: stages of the tensor-core kernel's K / V ring (``tc::kStages``)
+TC_STAGES = 2
+#: a head-dim slab's width in bf16 columns -> TMA's swizzle of it (bytes):
+#: the swizzle spans exactly one slab's row
+TC_SWIZZLE = {16: 32, 32: 64, 64: 128}
 
 
 def flash_route(dtype: torch.dtype) -> str:
@@ -67,21 +81,73 @@ def flash_route(dtype: torch.dtype) -> str:
 
 
 def tc_keys(hd: int) -> int:
-    """Keys per K / V tile of the tensor-core kernel at head dim ``hd``."""
-    return 32 if hd > 128 else 64
+    """Keys per K / V tile of the tensor-core kernel at head dim ``hd``:
+    128, or 64 at hd 256 (its O accumulator alone is 128 registers a
+    thread)."""
+    return 64 if hd > 128 else 128
 
 
 def tc_rows(hd: int) -> int:
-    """Query rows per CTA of the tensor-core kernel at head dim ``hd``:
-    4 warps of two 16-row tiles up to hd 80, of one above."""
-    return 4 * 16 * (2 if hd <= 80 else 1)
+    """Query rows per CTA of the tensor-core kernel at head dim ``hd``: a
+    consumer warpgroup's 64 each, three warpgroups up to hd 80 and two
+    above (``tc::consumers_for``)."""
+    return 192 if hd <= 80 else 128
+
+
+def tc_registers(hd: int) -> tuple:
+    """``(producer, consumer)`` registers a thread of the tensor-core
+    kernel after ``setmaxnreg`` at head dim ``hd``: the producer warpgroup
+    and the ``tc_rows(hd) // 64`` consumer warpgroups share the SM's 64K
+    registers, so one CTA runs per SM (``tc::producer_regs``,
+    ``tc::consumer_regs``)."""
+    return (24, 240) if tc_rows(hd) == 128 else (32, 160)
+
+
+def tc_slab(hd: int) -> int:
+    """Columns of one swizzled head-dim slab of the tensor-core kernel's
+    tiles: 64 (128-byte swizzle), or a narrower head dim's own width (16
+    or 32: 32- or 64-byte swizzle)."""
+    return min(hd, 64)
+
+
+def tc_padded(hd: int) -> int:
+    """The head dim in whole slabs: hd 80 takes two 64-column slabs, TMA
+    zero-filling the second past column 80 (it reads no bytes there)."""
+    return -(-hd // tc_slab(hd)) * tc_slab(hd)
 
 
 def tc_smem_bytes(hd: int) -> int:
     """Dynamic shared memory of the tensor-core kernel at head dim ``hd``:
-    the Q block and two stages of K and V tiles, bf16 rows padded by
-    :data:`TC_PAD` elements (``tc::smem_bytes``)."""
-    return (tc_rows(hd) + 4 * tc_keys(hd)) * (hd + TC_PAD) * 2
+    alignment slack, the Q block, :data:`TC_STAGES` stages of K and V
+    tiles, and the barriers (``tc::smem_bytes``)."""
+    return (TC_ALIGN + (tc_rows(hd) + 2 * TC_STAGES * tc_keys(hd))
+            * tc_padded(hd) * 2 + TC_BARRIER_BYTES)
+
+
+def tma_params(t: torch.Tensor, rows: int) -> tuple:
+    """``(dims, strides, box)`` of the TMA tensor map of ``t`` ``(B, S,
+    heads, hd)``, bf16, for tiles of ``rows`` rows: dims ``(hd, S, heads,
+    B)`` innermost first; ``strides`` in bytes for dims 1-3 (a dim of size
+    1 is never stepped: it gets 16); the box one slab (:func:`tc_slab`) by
+    ``rows`` rows, loaded once per slab.
+    Raises where TMA's rules do not hold (:func:`_rows_aligned` says
+    whether a view passes)."""
+    B, S, Hh, hd = t.shape
+    es = t.element_size()
+    w = tc_slab(hd)
+    dims = (hd, S, Hh, B)
+    strides = tuple(st * es if n > 1 else 16 for st, n in (
+        (t.stride(1), S), (t.stride(2), Hh), (t.stride(0), B)))
+    box = (w, rows, 1, 1)
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        raise ValueError("TMA needs a contiguous head dim and a 16-byte "
+                         "aligned base")
+    if any(st <= 0 or st % 16 or st >= 1 << 40 for st in strides):
+        raise ValueError(f"TMA needs byte strides that are positive "
+                         f"multiples of 16 below 2**40, not {strides}")
+    if any(not 1 <= x <= 256 for x in box) or w * es > TC_SWIZZLE[w]:
+        raise ValueError(f"TMA box {box} out of bounds")
+    return dims, strides, box
 
 
 def _choose_block(S: int, requested: int) -> int:
@@ -139,20 +205,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("the head dim of q, k and v must be contiguous")
     route = flash_route(q.dtype)
     if route == "tensor_core":
-        # cp.async copies 16-byte chunks: rows must start on 16 bytes
+        # TMA reads from a 16-byte aligned base at strides of 16 bytes
         q, k, v = (t if _rows_aligned(t) else t.contiguous()
                    for t in (q, k, v))
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if q.numel() == 0:
         return out
     lib = _kernel_lib()
-    st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_flash_attention(
-            _DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, S, H, KV, *st, int(bool(causal)), int(window),
-            stream)
+        if route == "tensor_core":
+            err = launch_tc(lib, q, k, v, out, causal, window, stream)
+        else:
+            st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+            err = lib.repro_flash_attention_f32(
+                hd, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, H, KV, *st, int(bool(causal)), int(window), stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled "
+                           f"failed: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -161,11 +232,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def launch_tc(lib: ctypes.CDLL, q, k, v, out, causal: bool, window: int,
+              stream: int) -> int:
+    """One launch of ``lib``'s tensor-core kernel on bf16 CUDA tensors
+    that pass :func:`_rows_aligned`, into ``out`` (contiguous); returns the
+    library's error code (0, a CUDA error, or a CUresult negated)."""
+    B, S, H, hd = q.shape
+    plans = [tma_params(q, tc_rows(hd))] + [
+        tma_params(t, tc_keys(hd)) for t in (k, v)]
+    dims = (ctypes.c_ulonglong * 12)(*(x for p in plans for x in p[0]))
+    strides = (ctypes.c_ulonglong * 9)(*(x for p in plans for x in p[1]))
+    box = (ctypes.c_uint * 12)(*(x for p in plans for x in p[2]))
+    return lib.repro_flash_attention_tc(
+        hd, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+        H, k.shape[2], dims, strides, box, *out.stride()[:3],
+        int(bool(causal)), int(window), stream)
+
+
 def _rows_aligned(t: torch.Tensor) -> bool:
-    """Every (batch, position, head) row of ``t`` starts on 16 bytes."""
-    step = 16 // t.element_size()
+    """Every (batch, position, head) row of ``t`` starts on 16 bytes, and
+    the axes TMA steps have positive strides below 2**40 bytes: TMA's rules
+    on a tensor map's base and strides (:func:`tma_params`)."""
+    es = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
-        s % step == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+        s > 0 and s * es % 16 == 0 and s * es < 1 << 40
+        for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -227,18 +318,30 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 12 \
-    + [_I, _I, _P]
+_SIGNATURES = {
+    "repro_flash_attention_f32": [_I, _P, _P, _P, _P, _I, _I, _I, _I]
+    + [_LL] * 12 + [_I, _I, _P],
+    "repro_flash_attention_tc": [_I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 ctypes.POINTER(ctypes.c_ulonglong),
+                                 ctypes.POINTER(ctypes.c_ulonglong),
+                                 ctypes.POINTER(ctypes.c_uint)]
+    + [_LL] * 3 + [_I, _I, _P],
+    "repro_flash_tc_smem_bytes": [_I],
+    "repro_flash_tc_plan": [_I, ctypes.POINTER(ctypes.c_int)],
+}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument types of this source's C functions set."""
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.restype = _I
+            fn.argtypes = argtypes
+    return lib
 
 
 def _kernel_lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
 
-    lib = _build.load("flash_attention")
-    fn = lib.repro_flash_attention
-    if fn.argtypes is None:
-        fn.restype = _I
-        fn.argtypes = _ARGTYPES
-        lib.repro_flash_tc_smem_bytes.restype = _I
-        lib.repro_flash_tc_smem_bytes.argtypes = [_I]
-    return lib
+    return bind(_build.load("flash_attention"))

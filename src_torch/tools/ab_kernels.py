@@ -8,20 +8,28 @@ DIR``):
 
     python3 src_torch/tools/ab_kernels.py --parent DIR
     python3 src_torch/tools/ab_kernels.py --parent DIR --kernels decode_rows
+    python3 src_torch/tools/ab_kernels.py --parent DIR --kernels flash_attention
 
 For each kernel it builds the parent's ``csrc/<name>.cu`` (with the
 parent's headers), this checkout's and each variant of :data:`VARIANTS`
 (a copy of ``csrc/`` with the edits applied), one ``nvcc`` each with
 ``_build.flags(name)``, all started together, into
-``kernels/build/ab/``.  Each library is checked bitwise against the plain
-twin at the timed shape (``rglru_scan``: int32 views; ``decode_rows``:
-int64 views, NaNs by position), then all are timed by CUDA events in
+``kernels/build/ab/``.  Each library is checked against the plain twin
+at the timed shape, bitwise but for flash (``rglru_scan``: int32 views;
+``decode_rows``: int64 views, NaNs by position), then all are timed by
+CUDA events in
 turns, the list forwards and then backwards, ``--rounds`` times, at the
 main paths' shapes:
 
 - ``rglru_scan``: B 4, S 4096, W 2560 fp32 (RecurrentGemma-2B's prefill);
 - ``decode_rows``: 16 x 50M fp32, and 16 x 50M q8 deltas (int8, a scale
   per 1024, an fp64 base) into a (16, 50M) fp64 stack;
+- ``flash_attention``: its bf16 (tensor-core) route at the five prefill
+  shapes of :data:`FLASH_SHAPES` (``chip_smoke.FLASH_SERVE``,
+  ``FLASH_SERVE_RG`` and three of ``FLASH_FAMILIES``), each library held
+  to ``flash_attention_plain`` within 2e-2 (not bitwise: the kernels
+  round differently), timed in turns with the library yardstick
+  ``scaled_dot_product_attention`` beside them (``sdpa``; timed only);
 - ``scatter_wsum``: one site's 0xF5 frame in the federated LLM of
   ``chip_smoke.py`` (danube at 4 layers, 441,735,680 parameters, TopK at
   5%: 22,086,784 int8 values, a scale per 1024, at sorted unique indices
@@ -65,6 +73,7 @@ sys.path.insert(0, os.path.join(ROOT, "src_torch"))
 import chip_smoke as CS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import agg_reduce as A  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import rglru_scan as RS  # noqa: E402
 
 #: per kernel: variant name -> edits (old, new) of this checkout's source;
@@ -92,6 +101,21 @@ VARIANTS = {
                     "old[k] = a.acc[d[k]];")],
         "store_cs": [("if (at(k) < n) a.acc[d[k]] = old[k];",
                       "if (at(k) < n) __stcs(a.acc + d[k], old[k]);")],
+    },
+    "flash_attention": {
+        # Q K^T, softmax and P V one after another at every head dim
+        "no_overlap": [("return consumer_regs(hd) - (hd / 2 + 3 * "
+                        "keys_for(hd) / 4) >= 32;", "return false;")],
+        # timing probes, wrong by design (timed, never checked): the
+        # softmax without its exp2s, and no softmax at all (the products,
+        # the ring and the epilogue alone)
+        "probe_no_exp2": [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) '
+                           ': "f"(x));', "y = x;")],
+        "probe_products_only": [
+            ("auto softmax = [&](int t0, float (&alpha)[2]) {",
+             "auto softmax = [&](int t0, float (&alpha)[2]) {\n"
+             "      alpha[0] = alpha[1] = 1.f;\n"
+             "      if (t0 >= 0) return;")],
     },
     "decode_rows": {
         # write-back stores (not evict-first)
@@ -148,8 +172,9 @@ def build(name: str, dirs: dict):
 
 def _checked(name: str, var: str, ok: bool) -> bool:
     """``ok``, or raise for the parent's and this checkout's kernel; a
-    variant that disagrees with the twin is dropped with a note."""
-    if ok:
+    variant that disagrees with the twin is dropped with a note.  A
+    ``probe_`` variant is wrong by design: it is timed, never checked."""
+    if ok or var.startswith("probe_"):
         return True
     if var in ("parent", "new"):
         raise AssertionError(f"{name} {var} != twin")
@@ -336,6 +361,110 @@ def ab_scatter(libs: dict, card: str, rounds: int):
                           + scales_np.nbytes) / 1e6}
 
 
+#: the entry point of the parent's flash library when it is the mma.sync
+#: kernel's (one function, both dtypes)
+_PARENT_FLASH = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 \
+    + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12 \
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def flash_call(lib, var: str):
+    """call(q, k, v, out, causal, window): one bf16 launch of ``lib``'s
+    tensor-core kernel: an mma.sync kernel's library through its one
+    entry point, a TMA kernel's (this checkout's, its variants', a later
+    parent's) through the wrapper's TMA path."""
+    if not hasattr(lib, "repro_flash_attention_tc"):
+        fn = lib.repro_flash_attention
+        fn.restype, fn.argtypes = ctypes.c_int, _PARENT_FLASH
+
+        def call(q, k, v, out, causal, window):
+            B, S, H, hd = q.shape
+            st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+            err = fn(1, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), B, S, H, k.shape[2], *st, int(causal),
+                     int(window), _stream())
+            if err:
+                raise RuntimeError(f"flash parent launch: error {err}")
+        return call
+    FA.bind(lib)
+
+    def call(q, k, v, out, causal, window):
+        err = FA.launch_tc(lib, q, k, v, out, causal, window, _stream())
+        if err:
+            raise RuntimeError(f"flash {var} launch: error {err}")
+    return call
+
+
+#: the bf16 prefill shapes the A/B times: danube (hd 80), RecurrentGemma
+#: (hd 256), granite-moe (hd 64), qwen3 (hd 128), Whisper's encoder (hd 64,
+#: non-causal)
+FLASH_SHAPES = {"hd80": CS.FLASH_SERVE, "hd256": CS.FLASH_SERVE_RG,
+                "hd64": CS.FLASH_FAMILIES["granite-moe-1b-a400m"],
+                "hd128": CS.FLASH_FAMILIES["qwen3-32b"],
+                "hd64_noncausal": CS.FLASH_FAMILIES["whisper-medium"]}
+
+
+def ab_flash(libs: dict, card: str, rounds: int):
+    """Each library against ``flash_attention_plain`` within 2e-2 at each
+    shape of :data:`FLASH_SHAPES`, then all timed in turns with the
+    library yardstick ``scaled_dot_product_attention`` (as
+    ``chip_smoke.phase_flash_timing`` calls it) beside them."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30)
+    rows = []
+    for tag, f in FLASH_SHAPES.items():
+        q, k, v = CS._flash_inputs(gen, f["B"], f["S"], f["H"], f["KV"],
+                                   f["hd"], torch.bfloat16, dev)
+        causal, window = f["causal"], f["window"]
+        twin = FA.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+        out = torch.empty_like(q)
+        fns, errs = {}, {}
+        for var, (lib, _) in libs.items():
+            call = flash_call(lib, var)
+            out.fill_(float("nan"))
+            call(q, k, v, out, causal, window)
+            torch.cuda.synchronize()
+            err, exc = CS._excess(out, twin, CS.FLASH_TOL[torch.bfloat16])
+            errs[var] = err
+            if not _checked("flash_attention", var, exc <= 1.0):
+                continue
+            fns[var] = (lambda c: lambda: c(q, k, v, out, causal,
+                                            window))(call)
+        del twin
+        S = f["S"]
+        qpos = torch.arange(S, device=dev)[:, None]
+        kpos = torch.arange(S, device=dev)[None, :]
+        mask = None
+        if causal:
+            mask = kpos <= qpos
+        if window:
+            band = kpos > qpos - window
+            mask = band if mask is None else mask & band
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fns["sdpa"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=1.0, enable_gqa=True)
+        torch.use_deterministic_algorithms(False)
+        try:
+            times = in_turns(fns, rounds, reps=20)
+        finally:
+            torch.use_deterministic_algorithms(True)
+        bound_ms, bound_by = CS.flash_bound(f["B"], S, f["H"], f["KV"],
+                                            f["hd"], window, causal, 2)[:2]
+        med = {n: statistics.median(t) for n, t in times.items()}
+        rows.append({"kernel": "flash_attention", "card": card,
+                     "shape": tag, "dims": f, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "tol": 2e-2,
+                     "max_abs_vs_twin": errs, "median_ms": med,
+                     "share_of_bound": {n: bound_ms / m
+                                        for n, m in med.items()},
+                     "ms": times})
+        del q, k, v, out, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
 def in_turns(fns: dict, rounds: int, reps: int) -> dict:
     """{name: [ms per launch, one per turn]}: every fn timed by
     ``chip_smoke.event_ms``, the names forwards then backwards, ``rounds``
@@ -464,6 +593,8 @@ def main(argv=None) -> int:
         results += ab_decode(built["decode_rows"], card, args.rounds)
     if "scatter_wsum" in built:
         results.append(ab_scatter(built["scatter_wsum"], card, args.rounds))
+    if "flash_attention" in built:
+        results += ab_flash(built["flash_attention"], card, args.rounds)
     for line in results:
         print(json.dumps(line), flush=True)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)

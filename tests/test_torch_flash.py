@@ -193,29 +193,44 @@ def test_no_route_for_other_dtypes(dtype):
         FA.flash_route(dtype)
 
 
-#: the tensor-core kernel's dynamic shared memory: a Q block of 128 rows (64
-#: above hd 80) and two stages of K and V tiles (64 keys; 32 at hd 256),
-#: rows of hd + 8 bf16
-TC_SMEM = {16: 18_432, 32: 30_720, 64: 55_296, 80: 67_584, 128: 87_040, 256: 101_376}
+#: the tensor-core kernel's dynamic shared memory: 1 KB of alignment
+#: slack, a Q block of 192 rows (128 above hd 80), two stages of K and V
+#: tiles (128 keys; 64 at hd 256) in swizzled bf16 slabs of 64 columns
+#: (hd 80 takes two), 128 bytes of mbarriers
+TC_SMEM = {16: 23_680, 32: 46_208, 64: 91_264, 80: 181_376, 128: 164_992,
+           256: 197_760}
 
 
 @pytest.mark.parametrize("hd", FA.HEAD_DIMS)
 def test_tensor_core_shared_memory_fits_a_block(hd):
     """Every instantiated head dim fits the 227 KB a block may use (above
-    48 KB the launch raises the limit first), and leaves room for two CTAs
-    per SM at the serving head dims."""
+    48 KB the launch raises the limit first).  One CTA runs per SM: its
+    producer and consumer warpgroups hold all of the SM's 64K registers
+    after setmaxnreg, and the persistent grid has one CTA per SM."""
     got = FA.tc_smem_bytes(hd)
     assert got == TC_SMEM[hd]
-    assert got < FA.SMEM_LIMIT and 2 * got <= FA.SMEM_LIMIT
-    # padded rows: the 8 rows an ldmatrix phase reads fall in 8 distinct
-    # 16-byte bank groups of the 128-byte row of banks
-    stride = (hd + FA.TC_PAD) * 2
-    assert len({(r * stride) % 128 // 16 for r in range(8)}) == 8
+    assert got < FA.SMEM_LIMIT
+    producer, consumer = FA.tc_registers(hd)
+    regs = 128 * producer + FA.tc_rows(hd) // 64 * 128 * consumer
+    assert 65_536 // 2 < regs <= 65_536
+    # swizzled slabs: the 8 rows a wgmma reads of one 16-byte column chunk
+    # fall in 8 distinct 16-byte bank groups of the 128-byte row of banks
+    # (the TMA swizzle XORs address bits 4.. with bits 7..)
+    span = FA.TC_SWIZZLE[FA.tc_slab(hd)]
+    bits = (span // 16).bit_length() - 1
+    for c in range(span // 16):
+        groups = set()
+        for r in range(8):
+            addr = r * span + 16 * c
+            addr ^= ((addr >> 7) & ((1 << bits) - 1)) << 4
+            groups.add(addr % 128 // 16)
+        assert len(groups) == 8
 
 
 def test_tensor_core_rows_must_start_on_16_bytes():
-    """cp.async moves 16-byte chunks: a view whose rows do not start on 16
-    bytes is copied to a contiguous tensor before the launch."""
+    """TMA reads from a 16-byte aligned base at strides of 16 bytes: a view
+    whose rows do not start on 16 bytes is copied to a contiguous tensor
+    before the launch."""
     x = torch.zeros((2, 8, 2, 88), dtype=torch.bfloat16)
     assert FA._rows_aligned(x[..., :80])
     assert not FA._rows_aligned(x[..., 4:84])
@@ -340,6 +355,18 @@ def test_tensor_core_route_matches_twin_on_card(cuda_device, case):
 def test_tensor_core_shared_memory_matches_the_kernel(cuda_device, hd):
     assert FA._kernel_lib().repro_flash_tc_smem_bytes(hd) \
         == FA.tc_smem_bytes(hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+def test_tensor_core_plan_matches_the_kernel(cuda_device, hd):
+    """The library's tiles are the wrapper's mirror of them."""
+    import ctypes
+
+    plan = (ctypes.c_int * 4)()
+    assert FA._kernel_lib().repro_flash_tc_plan(hd, plan) == 0
+    assert list(plan) == [FA.tc_rows(hd), FA.tc_keys(hd), FA.TC_STAGES,
+                          FA.tc_slab(hd)]
 
 
 @pytest.mark.cuda
