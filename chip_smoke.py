@@ -19,7 +19,8 @@ and qchunk 3 and 1000, and ``weighted_sum``'s fp32 tiles bitwise,
 their register paths -- every client-count bucket boundary, N at every
 stage width +-1, ragged row starts, qchunk not dividing a stage, every
 payload kind with and without a base; flash attention on both
-of its routes, the bf16 tensor-core kernel and the fp32 CUDA-core one),
+of its routes, the bf16 tensor-core kernel and the fp32 CUDA-core one,
+each at the other's tile edges too),
 folds a round that mixes codecs and bases against the numpy engine (the
 weighted folds, and the robust reductions through ``decode_rows``), and
 drives the main paths: the
@@ -39,7 +40,10 @@ Granite-MoE-1B-A400M and InternVL2-1B at full depth, DeepSeek-V2-236B
 cut to its dense first layer and one MoE layer of 160 experts, Qwen3-32B,
 Yi-34B and Granite-34B cut to 2 layers), each served with flash and
 eager attention, the flash kernel held to its twin at each family's head
-group and timed at head dims 64 and 128; and slice 5's server folds: the
+group and timed at head dims 64 and 128 (the fp32 route too, held to its
+twin at each timed shape; its launches counted on the fp32 prefills that
+hold RecurrentGemma-2B's and Whisper-medium's flash path against eager);
+and slice 5's server folds: the
 sharded fold at the benchmark's 50M x 16 geometry over 8 shard ranges
 (fp64 and fp32 tiles),
 the 0xF5 sparse fold of 100M-parameter deltas from 8 clients through
@@ -1263,10 +1267,24 @@ def _flash_cases():
     # its end
     from repro_torch.kernels import flash_attention as FA
 
+    def edges(rows, keys):
+        return {keys - 1, keys, keys + 1, rows - 1, rows, rows + 1,
+                2 * rows + 1}
+
     for hd in (16, 64, 80, 128, 256):
         rows, keys = FA.tc_rows(hd), FA.tc_keys(hd)
-        for S in sorted({keys - 1, keys, keys + 1, rows - 1, rows,
-                         rows + 1, 2 * rows + 1}):
+        for S in sorted(edges(rows, keys)):
+            for causal in (True, False):
+                grid.append((2, S, 8, 2, hd, 0, causal))
+        for window in (keys // 2 + 3, keys + 1, 2 * keys - 1, rows + 5):
+            grid.append((1, 3 * rows + 7, 4, 1, hd, window, True))
+    # the CUDA-core kernel's tile edges (128-row query blocks, 64 at hd
+    # 256; 64-key tiles, 48 at hd 128, 32 at hd 80 and 256), the same way,
+    # each S the lines above do not already take
+    for hd in (16, 64, 80, 128, 256):
+        rows, keys = FA.f32_rows(hd), FA.f32_keys(hd)
+        taken = edges(FA.tc_rows(hd), FA.tc_keys(hd))
+        for S in sorted(edges(rows, keys) - taken):
             for causal in (True, False):
                 grid.append((2, S, 8, 2, hd, 0, causal))
         for window in (keys // 2 + 3, keys + 1, 2 * keys - 1, rows + 5):
@@ -1457,12 +1475,45 @@ def phase_serve(dev, card: str):
     return launches
 
 
+def flash_mask(S: int, causal: bool, window: int, dev):
+    """The boolean (S, S) causal + window mask the library yardstick
+    ``scaled_dot_product_attention`` takes, or None for a non-causal layer
+    with no window."""
+    qpos = torch.arange(S, device=dev)[:, None]
+    kpos = torch.arange(S, device=dev)[None, :]
+    mask = None
+    if causal:
+        mask = kpos <= qpos
+    if window:
+        band = kpos > qpos - window
+        mask = band if mask is None else mask & band
+    return mask
+
+
+#: launches a time of the fp32 (CUDA-core) route in phase_flash_timing
+FLASH_F32_REPS = 10
+
+
+def _f32_row(timing: dict) -> dict:
+    """The fp32 route's numbers of a ``phase_flash_timing`` result, as a
+    kernel entry of the ``kernels`` line holds them."""
+    r = timing["routes"]["cuda_core"]
+    return dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+                share_of_bound=r["share_of_bound"],
+                kernel_over_library=r["kernel_over_library"],
+                max_abs_diff=r["max_abs_diff"],
+                shape=timing["shape"].replace(", bf16", ", fp32"))
+
+
 def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
     """The kernel per launch at a serving layer's shape ``f``, by CUDA
     events, beside its bound, its twin and the library yardstick
     ``scaled_dot_product_attention`` (enable_gqa, the same boolean causal +
     window mask, or none for a non-causal layer with no window; timed only,
-    never on the port's path)."""
+    never on the port's path); then the fp32 route on the same values (the
+    CUDA-core kernel), held to its twin within FLASH_TOL[float32] and timed
+    the same way, beside its bound on the fp32 CUDA cores."""
     from repro_torch.kernels import flash_attention as FA
 
     gen = torch.Generator(device=dev)
@@ -1480,17 +1531,19 @@ def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
                         reps=2)
     # the fp32 route on the same values (the CUDA-core kernel)
     q32, k32, v32 = q.float(), k.float(), v.float()
+    got32 = FA.flash_attention(q32, k32, v32, **args)
+    twin32 = FA.flash_attention_plain(q32, k32, v32, **args)
+    err32, exc32 = _excess(got32, twin32, FLASH_TOL[torch.float32])
+    check(got32.dtype == torch.float32 and exc32 <= 1.0,
+          f"flash fp32 at the serving shape: |kernel - twin| = {err32}")
+    del got32, twin32
     cuda_core_ms = event_ms(lambda: FA.flash_attention(q32, k32, v32,
-                                                       **args), reps=2)
+                                                       **args),
+                            reps=FLASH_F32_REPS)
+    plain_f32_ms = event_ms(lambda: FA.flash_attention_plain(
+        q32, k32, v32, **args), reps=1)
     S = f["S"]
-    qpos = torch.arange(S, device=dev)[:, None]
-    kpos = torch.arange(S, device=dev)[None, :]
-    mask = None
-    if f["causal"]:
-        mask = kpos <= qpos
-    if f["window"]:
-        band = kpos > qpos - f["window"]
-        mask = band if mask is None else mask & band
+    mask = flash_mask(S, f["causal"], f["window"], dev)
 
     def sdpa(q, k, v):
         return lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1503,7 +1556,7 @@ def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
     try:
         lib = sdpa(q, k, v)().transpose(1, 2)
         library_ms = event_ms(sdpa(q, k, v))
-        library_f32_ms = event_ms(sdpa(q32, k32, v32), reps=2)
+        library_f32_ms = event_ms(sdpa(q32, k32, v32), reps=3)
     finally:
         torch.use_deterministic_algorithms(True)
     del q32, k32, v32
@@ -1523,10 +1576,17 @@ def phase_flash_timing(dev, card: str, f=FLASH_SERVE, seed: int = 4500):
                               "bound_ms": bound_ms, "bound_by": bound_by,
                               "library_ms": library_ms},
               "cuda_core": {"dtype": "float32", "ms": cuda_core_ms,
+                            "reps": FLASH_F32_REPS,
                             "tflops": flops / cuda_core_ms / 1e9,
+                            "plain_ms": plain_f32_ms,
                             "bound_ms": f32_bound_ms,
                             "bound_by": f32_bound_by,
-                            "library_ms": library_f32_ms}}
+                            "library_ms": library_f32_ms,
+                            "share_of_bound": f32_bound_ms / cuda_core_ms,
+                            "kernel_over_library":
+                                cuda_core_ms / library_f32_ms,
+                            "max_abs_diff": err32,
+                            "tol": FLASH_TOL[torch.float32]}}
     emit("flash_timing", card=card, shape=shape,
          route=FA.flash_route(q.dtype), kernel_ms=kernel_ms,
          kernel_tflops=flops / kernel_ms / 1e9, library_ms=library_ms,
@@ -1790,6 +1850,7 @@ def phase_serve_recurrentgemma(dev, card: str):
     # moves them by ~0.17, as far as either lies from the fp32 logits
     # (PERF.md, section 6); those distances are reported.
     f32 = {}
+    f32_launches = 0
     model32 = build_model(cfg.replace(dtype="float32"))
     for impl in ("flash", "eager"):
         for key in FA.LAUNCHES:
@@ -1805,6 +1866,8 @@ def phase_serve_recurrentgemma(dev, card: str):
               and FA.LAUNCHES["flash_attention.cuda_core"] == want[0],
               f"serve_recurrentgemma fp32 {impl}: launches {counts()}, "
               f"want {want}")
+        if impl == "flash":
+            f32_launches = FA.LAUNCHES["flash_attention.cuda_core"]
     err, exc = _excess(f32["flash"], f32["eager"], SERVE_TOL)
     check(exc <= 1.0, f"serve_recurrentgemma: fp32 prefill logits flash vs "
           f"eager |d| = {err}")
@@ -1819,7 +1882,10 @@ def phase_serve_recurrentgemma(dev, card: str):
          d_model=cfg.d_model, lru_width=cfg.lru_width, heads=cfg.num_heads,
          kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
          window=cfg.window, batch=RG_BATCH, prompt=RG_PROMPT,
-         new_tokens=RG_NEW, launches=launches, init_s=init_s,
+         new_tokens=RG_NEW, launches=launches,
+         f32_flash_launches_by_route={"tensor_core": 0,
+                                      "cuda_core": f32_launches},
+         init_s=init_s,
          prefill_ms={"flash": flash.prefill_s * 1e3,
                      "eager": eager.prefill_s * 1e3},
          decode_ms_per_token={
@@ -1834,7 +1900,7 @@ def phase_serve_recurrentgemma(dev, card: str):
          ids_flash=flash.ids.tolist(), ids_eager=eager.ids.tolist())
     del params, runs, flash, eager, f32
     torch.cuda.empty_cache()
-    return fl["prefill"]
+    return dict(fl["prefill"], f32_cuda_core=f32_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1867,7 +1933,8 @@ def phase_serve_families(dev, card: str):
     as the reference pins it to XLA; xLSTM has no attention), decode
     none.  The last-position prefill logits of flash and eager agree
     within SERVE_TOL (for the F32_LOGITS archs, those of a further fp32
-    prefill each); for the MoE archs each layer's top-k expert sets over
+    prefill each, whose flash path launches every attention layer on the
+    CUDA-core route); for the MoE archs each layer's top-k expert sets over
     every prompt token are
     compared between the two runs, and a logit gap past SERVE_TOL fails
     only where no routing differs (a bf16 difference upstream can flip a
@@ -1993,18 +2060,31 @@ def phase_serve_families(dev, card: str):
             le = runs["eager"].prefill_logits[:, :V]
             err, exc = _excess(lf, le, SERVE_TOL)
             flipped = bool(flips) and max(flips) > 0
-            f32 = {}
+            f32, f32_routes = {}, None
             if arch in F32_LOGITS:
-                # the same prompt's prefill in fp32 through both paths
-                # (flash on its CUDA-core route), uncounted
+                # the same prompt's prefill in fp32 through both paths:
+                # flash launches every attention layer on the CUDA-core
+                # route, eager none
                 model32 = build_model(cfg.replace(dtype="float32"))
                 batch32 = {"tokens": torch.as_tensor(tokens, device=dev)}
                 if audio is not None:
                     batch32["audio_embeds"] = audio
                 for impl in ("flash", "eager"):
+                    for key in FA.LAUNCHES:
+                        FA.LAUNCHES[key] = 0
                     step = make_prefill(model32, max_len=prompt + new,
                                         impl=impl)
                     f32[impl] = step(params, batch32)[0][:, :V].float()
+                    torch.cuda.synchronize()
+                    got = {r: FA.LAUNCHES[f"flash_attention.{r}"]
+                           for r in FA.ROUTES.values()}
+                    want = {"tensor_core": 0,
+                            "cuda_core": n_attn if impl == "flash" else 0}
+                    check(got == want,
+                          f"serve_families {arch}: fp32 {impl} prefill "
+                          f"launches {got}, want {want}")
+                    if impl == "flash":
+                        f32_routes = got
                 f32_err, f32_exc = _excess(f32["flash"], f32["eager"],
                                            SERVE_TOL)
                 check(f32_exc <= 1.0,
@@ -2028,6 +2108,7 @@ def phase_serve_families(dev, card: str):
                 prefix=(cfg.num_prefix_tokens if extra is not None else 0),
                 new_tokens=new, init_s=init_s,
                 flash_launches_by_route=fl,
+                f32_flash_launches_by_route=f32_routes,
                 prefill_ms={k: r.prefill_s * 1e3 for k, r in runs.items()},
                 decode_ms_per_token={k: r.decode_s * 1e3 / (new - 1)
                                      for k, r in runs.items()},
@@ -2055,8 +2136,11 @@ def phase_serve_families(dev, card: str):
         serve_mod.make_prefill_step = make_prefill
         mlp_mod.top_k = top_k
     gc_collect()
-    return {arch: r["flash_launches_by_route"]["prefill"]["tensor_core"]
-            for arch, r in out.items()}
+    return ({arch: r["flash_launches_by_route"]["prefill"]["tensor_core"]
+             for arch, r in out.items()},
+            {arch: r["f32_flash_launches_by_route"]["cuda_core"]
+             for arch, r in out.items()
+             if r["f32_flash_launches_by_route"] is not None})
 
 
 # ---------------------------------------------------------------------------
@@ -3964,7 +4048,7 @@ def main() -> int:
     flash_launches = phase_serve(dev, card)
     flash = phase_flash_timing(dev, card)
     rg_launches = phase_serve_recurrentgemma(dev, card)
-    fam_launches = phase_serve_families(dev, card)
+    fam_launches, fam_f32_launches = phase_serve_families(dev, card)
     flash_rg = phase_flash_timing(dev, card, FLASH_SERVE_RG, seed=4096)
     # the families' two head dims: granite-moe's prefill (hd 64) and
     # qwen3's (hd 128)
@@ -3995,6 +4079,8 @@ def main() -> int:
     fed = phase_federated_llm(dev, card)
     phase_tight_round(dev, card)
     src = "src_torch/repro_torch/kernels/csrc/"
+    f32_launches = rg_launches["f32_cuda_core"] + sum(
+        fam_f32_launches.values())
     lines = [
         # the fp32-tile mode (the sharded fold's tile_dtype="float32") under
         # "f32_tile": its launches are the sharded fold's at 50M x 16
@@ -4032,11 +4118,11 @@ def main() -> int:
         # launches: the bf16 prefills of the serving paths (H2O-Danube, hd
         # 80; RecurrentGemma, hd 256; the families, hd 64 and 128, per
         # arch: Whisper's encoder layers non-causal), all on the
-        # tensor-core route; the times at danube's shape, at
-        # RecurrentGemma's under "hd256", at granite-moe's and qwen3's
-        # under "hd64" and "hd128", at Whisper's encoder layer under
-        # "hd64_noncausal"; per route under "routes" (fp32: the CUDA-core
-        # kernel)
+        # tensor-core route (the fp32 route's, below, by route); the
+        # times at danube's shape, at RecurrentGemma's under "hd256", at
+        # granite-moe's and qwen3's under "hd64" and "hd128", at Whisper's
+        # encoder layer under "hd64_noncausal"; per route under "routes"
+        # (fp32: the CUDA-core kernel)
         dict(name="flash_attention", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:94",
              design="bf16: wgmma products (S = Q K^T from shared memory, "
@@ -4053,7 +4139,7 @@ def main() -> int:
              launches_by_route={"tensor_core": flash_launches
                                 + rg_launches["flash_attention.tensor_core"]
                                 + sum(fam_launches.values()),
-                                "cuda_core": 0},
+                                "cuda_core": f32_launches},
              hd256=flash_rg, hd64=flash_hd64, hd128=flash_hd128,
              hd64_noncausal=flash_enc,
              max_abs_diff_by_route=flash_diff,
@@ -4063,6 +4149,30 @@ def main() -> int:
                                             flash_hd64["max_abs_diff"],
                                             flash_hd128["max_abs_diff"],
                                             flash_enc["max_abs_diff"]))),
+        # the fp32 route's kernel (f32::flash_f32_kernel): launches on the
+        # fp32 prefills that hold flash against eager (RecurrentGemma's 8
+        # attention layers, Whisper's 24 encoder + 24 decoder layers); the
+        # times on the fp32 values of flash_timing's inputs, at the same
+        # shapes, beside the bound on the fp32 CUDA cores and SDPA on
+        # those values
+        dict(_f32_row(flash), name="flash_attention_f32",
+             source=src + "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:94",
+             design="fp32 FMAs register-tiled like a SIMT GEMM (2-4 rows x "
+                    "4-16 keys of S, 2-4 rows x 4-20 columns of O a "
+                    "thread), K / V tiles in dynamic shared memory filled "
+                    "by 16-byte cp.async through a 2-stage ring, one exp2 "
+                    "a score, masks on edge tiles only",
+             launches=f32_launches,
+             launches_by_path={
+                 "serve_recurrentgemma_f32": rg_launches["f32_cuda_core"],
+                 "serve_families_f32": fam_f32_launches},
+             max_abs_diff=max(flash_diff["cuda_core"], *(
+                 r["routes"]["cuda_core"]["max_abs_diff"] for r in
+                 (flash, flash_rg, flash_hd64, flash_hd128, flash_enc))),
+             hd256=_f32_row(flash_rg), hd64=_f32_row(flash_hd64),
+             hd128=_f32_row(flash_hd128),
+             hd64_noncausal=_f32_row(flash_enc)),
         dict(name="rglru_scan", source=src + "rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan.py:51",
              launches=rg_launches["rglru_scan"], max_abs_diff=rglru_diff,
@@ -4088,7 +4198,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "design", "launches",
             "max_abs_err",
             "max_abs_diff", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "share_of_bound", "gb_per_s", "trim_sum", "shape",
+            "library_ms", "share_of_bound", "kernel_over_library",
+            "gb_per_s", "trim_sum", "shape",
             "launches_by_path", "launches_by_route",
             "routes", "max_abs_diff_by_route", "hd256", "hd64", "hd128",
             "hd64_noncausal",

@@ -19,8 +19,9 @@
 //
 // Two routes, chosen by dtype alone (kernels/flash_attention.py):
 //   - bf16, the serving path: flash_tc_kernel, on the bf16 tensor cores;
-//   - fp32: flash_fwd_kernel, on the fp32 CUDA cores.  No bf16 or TF32
-//     product holds the fp32 tolerance (2e-5), so fp32 stays there.
+//   - fp32: f32::flash_f32_kernel, on the fp32 CUDA cores.  No bf16 or
+//     single-TF32 product holds the fp32 tolerance (2e-5), so fp32 stays
+//     there, in fp32 FMAs.
 //
 // What bounds it: operations.  At the serving shape (B 4, S 4500, H 32,
 // KV 8, hd 80, window 4096) the band is 1.29e9 (q, k) pairs, 4*hd = 320
@@ -82,22 +83,46 @@
 // (a launch error that loses the process's CUDA context) instead of
 // hanging the card (mbar_wait).
 //
-// fp32 design (flash_fwd_kernel, unchanged since it was the only route):
-// one CTA of 256 threads per (q block, q head, batch).  kLanes threads own a
-// query row (4 up to head dim 128, so a q block is 64 rows; 8 at head dim
-// 256, 32 rows): each keeps its share of q (pre-multiplied by log2 e, so the
-// softmax uses exp2) and of the fp32 output accumulator in registers, in
-// float4 chunks interleaved across the lanes (lane l owns chunks l,
-// l + kLanes, ...), so a row's lanes read consecutive 16-byte chunks of
-// shared memory and no bank conflicts arise at any head dim.  K and V tiles
-// (32 keys; 16 at head dim 256, so the two tiles stay within the 48 KB of
-// static shared memory) are staged through shared memory as fp32.  A score
-// is kLanes partial dot products summed by xor shuffles (two, or three at
-// 8 lanes), identical in the row's lanes, which then each run the same
-// online-softmax update (running max m, sum l) on 8 keys at a time and fold
-// p * v into their share of the accumulator.  Every thread of a CTA runs
-// the same trip counts, so the shuffles never diverge.  It cannot beat the
-// fp32 cores' 67 TFLOP/s (6.1 ms at danube's shape).
+// fp32 design (f32::flash_f32_kernel, a SIMT GEMM's shape), at every head
+// dim.  Its bound is the same flops on the fp32 CUDA cores (67 TFLOP/s):
+// 6.1 ms at danube's shape, 3.8 ms at recurrentgemma's.  One CTA a (query
+// block, head, batch) item, heaviest blocks first; 256 threads, or 128 at
+// hd 64 and 80 with two CTAs an SM:
+//   - tiles in dynamic shared memory: a Q block of 128 rows (64 at hd 256)
+//     pre-multiplied by log2 e once, and a ring of two stages of K and V
+//     tiles (64 keys; 48 at hd 128, 32 for a 128-thread CTA: the most that
+//     fits), taking K_0, V_0, K_1, ... in turn; at hd 256 each tile comes
+//     as two 128-column slices, so that 64-key tiles fit beside the Q
+//     block.  Each slice is copied by 16-byte cp.async spread over the CTA,
+//     rows past S zero-filled (the wrapper copies a view whose rows are not
+//     16-byte aligned first), and waited for by its cp.async group and one
+//     CTA barrier, after which the slot of the slice before it takes the
+//     copies of the slice three ahead: tile t + 1's copies fly while tile
+//     t computes;
+//   - both products register-tiled: thread (rg, cg) owns 2-8 query rows
+//     (rg + kRG i), shared with the 4, 8 or 16 threads of its row group
+//     (one warp).  For S = Q K^T it holds its rows' scores against keys cg
+//     + kCG j of the tile (2-8 x 3-16 scores), the head dim walked in
+//     float4 steps, so that each LDS.128 of Q feeds 12-64 FMAs and each of K
+//     8-32; no shuffle inside a dot product.  P goes through shared memory
+//     transposed (a key's row holds the block's rows in row-group order),
+//     and for O += P V the thread holds its rows' output at float4 columns
+//     cg + kCG c of each slice: a key's LDS.128 of V feeds 8-32 FMAs, its
+//     load of P 8-80.  The rows' strides are padded (q_stride,
+//     kv_stride, p_stride) so that every read and write of the micro-tiles
+//     takes the fewest shared-memory wavefronts its bytes allow;
+//   - one softmax a score: a thread takes the max of its own scores of a
+//     row, the row's threads combine it by 2-4 shuffles once a tile, then
+//     one exp2 a score, O rescaled once a tile; the row sums stay partial
+//     per thread until the epilogue's shuffles.  Only tiles that straddle
+//     the causal diagonal, the window's lower edge or S (tc::edge_tile)
+//     compare keys against each row's visible range [kmin, kmax].
+// Against the earlier kernel (4 or 8 lanes a row, each score kLanes partial
+// dot products summed by shuffles, each lane running the same softmax and
+// rescale, K and V staged a float a step through registers, 32- or 16-key
+// tiles in 48 KB of static shared memory): a shared-memory load feeds 8-80
+// FMAs, not 4, the softmax and the staging's divisions are done once, no
+// copy waits on registers, and hd 256's tiles feed 64 rows, not 32.
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -115,153 +140,6 @@ constexpr float kNegInf = -0.7f * 3.402823466e38f;
 struct Strides {  // element strides of the batch, sequence and head axes
   long long b, s, h;
 };
-
-// ---------------------------------------------------------------------------
-// fp32 route: the CUDA-core kernel
-// ---------------------------------------------------------------------------
-constexpr int kThreads = 256;             // threads per CTA
-constexpr int kSub = 8;                   // keys scored at once
-
-// threads per query row, and keys per shared-memory tile, at head dim HD
-__host__ __device__ constexpr int lanes_for(int hd) { return hd > 128 ? 8 : 4; }
-__host__ __device__ constexpr int keys_for(int hd) { return hd > 128 ? 16 : 32; }
-// query rows per CTA
-__host__ __device__ constexpr int rows_for(int hd) {
-  return kThreads / lanes_for(hd);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
-                 int g, Strides qs, Strides ks, Strides vs, Strides os,
-                 int causal, int window) {
-  constexpr int kLanes = lanes_for(HD);
-  constexpr int kKeys = keys_for(HD);
-  constexpr int kRows = rows_for(HD);
-  static_assert(HD % (4 * kLanes) == 0, "head dim must split into float4s");
-  static_assert(kKeys % kSub == 0, "tile must split into sub-chunks");
-  constexpr int kChunks = HD / 4;          // float4 chunks in a row
-  constexpr int kMine = kChunks / kLanes;  // chunks a thread owns
-  __shared__ float4 k_tile[kKeys][kChunks];
-  __shared__ float4 v_tile[kKeys][kChunks];
-
-  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest blocks first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / g;
-  const int tid = threadIdx.x;
-  const int row = tid / kLanes;
-  const int lane = tid % kLanes;
-  const int q0 = qb * kRows;
-  const int qpos = q0 + row;
-
-  const float* qrow = q + b * qs.b
-                      + static_cast<long long>(min(qpos, S - 1)) * qs.s
-                      + h * qs.h;
-  float4 qr[kMine];
-  float4 acc[kMine];
-#pragma unroll
-  for (int i = 0; i < kMine; ++i) {
-    const int d = 4 * (i * kLanes + lane);
-    qr[i] = make_float4(qrow[d] * kLog2e, qrow[d + 1] * kLog2e,
-                        qrow[d + 2] * kLog2e, qrow[d + 3] * kLog2e);
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = kNegInf;  // running max, in log2 units
-  float l = 0.f;      // running sum of exp2(s - m)
-
-  // the keys some row of this block can see: [lo, hi)
-  const int q1 = min(q0 + kRows, S);
-  const int lo = window != 0 ? max(0, q0 - window + 1) : 0;
-  const int hi = causal ? q1 : S;
-
-  const float* kbase = k + b * ks.b + kvh * ks.h;
-  const float* vbase = v + b * vs.b + kvh * vs.h;
-  float* k_flat = reinterpret_cast<float*>(&k_tile[0][0]);
-  float* v_flat = reinterpret_cast<float*>(&v_tile[0][0]);
-
-  for (int t0 = lo; t0 < hi; t0 += kKeys) {
-    const int nk = min(kKeys, hi - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int e = tid; e < kKeys * HD; e += kThreads) {
-      const int j = e / HD;
-      const int d = e - j * HD;
-      float kv = 0.f, vv = 0.f;
-      if (j < nk) {
-        const long long kp = t0 + j;
-        kv = kbase[kp * ks.s + d];
-        vv = vbase[kp * vs.s + d];
-      }
-      k_flat[e] = kv;
-      v_flat[e] = vv;
-    }
-    __syncthreads();
-
-    for (int j0 = 0; j0 < nk; j0 += kSub) {
-      float s[kSub];
-      float mx = m;
-#pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) {
-        const int j = j0 + jj;
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < kMine; ++i) {
-          const float4 kk = k_tile[j][i * kLanes + lane];
-          part = fmaf(qr[i].x, kk.x, part);
-          part = fmaf(qr[i].y, kk.y, part);
-          part = fmaf(qr[i].z, kk.z, part);
-          part = fmaf(qr[i].w, kk.w, part);
-        }
-#pragma unroll
-        for (int off = 1; off < kLanes; off <<= 1)
-          part += __shfl_xor_sync(0xffffffffu, part, off);
-        const int kp = t0 + j;
-        const bool ok = j < nk && (!causal || kp <= qpos) &&
-                        (window == 0 || kp > qpos - window);
-        s[jj] = ok ? part : -CUDART_INF_F;
-        mx = fmaxf(mx, s[jj]);
-      }
-      // mx and m are finite (>= kNegInf): a masked key's exp2(-inf) is 0,
-      // and a row with no key yet keeps alpha = 1, l = 0 and acc = 0
-      const float alpha = exp2f(m - mx);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < kMine; ++i) {
-        acc[i].x *= alpha;
-        acc[i].y *= alpha;
-        acc[i].z *= alpha;
-        acc[i].w *= alpha;
-      }
-#pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) {
-        const float p = exp2f(s[jj] - mx);
-        l += p;
-#pragma unroll
-        for (int i = 0; i < kMine; ++i) {
-          const float4 vv = v_tile[j0 + jj][i * kLanes + lane];
-          acc[i].x = fmaf(p, vv.x, acc[i].x);
-          acc[i].y = fmaf(p, vv.y, acc[i].y);
-          acc[i].z = fmaf(p, vv.z, acc[i].z);
-          acc[i].w = fmaf(p, vv.w, acc[i].w);
-        }
-      }
-      m = mx;
-    }
-  }
-
-  if (qpos >= S) return;
-  const float den = fmaxf(l, 1e-30f);
-  float* orow = o + b * os.b + static_cast<long long>(qpos) * os.s + h * os.h;
-#pragma unroll
-  for (int i = 0; i < kMine; ++i) {
-    const int d = 4 * (i * kLanes + lane);
-    orow[d] = acc[i].x / den;
-    orow[d + 1] = acc[i].y / den;
-    orow[d + 2] = acc[i].z / den;
-    orow[d + 3] = acc[i].w / den;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 route: the tensor-core kernel
@@ -876,17 +754,410 @@ int encode(CUtensorMap* map, const void* base, const unsigned long long* dims,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// fp32 route: the CUDA-core kernel
+// ---------------------------------------------------------------------------
+namespace f32 {
+
+// K / V tile pairs in the cp.async ring: 2 * kStages slots taking K_0, V_0,
+// K_1, V_1, ... in turn (at hd 256 each as two column slices)
+constexpr int kStages = 2;
+constexpr int kSlots = 2 * kStages;
+
+// threads a CTA: 256, or 128 at hd 64 and 80, where two CTAs share an SM
+__host__ __device__ constexpr int threads_for(int hd) {
+  return hd == 64 || hd == 80 ? 128 : 256;
+}
+// threads that share a query row (its column groups): 8; 4 where an eighth
+// of the head dim is not whole float4s (hd 16, 80); 16 above hd 80
+__host__ __device__ constexpr int colgroups_for(int hd) {
+  return hd == 16 || hd == 80 ? 4 : (hd > 80 ? 16 : 8);
+}
+// column slices a K / V tile is copied and consumed in: 2 at hd 256, so
+// that its ring holds 64-key tiles beside the Q block
+__host__ __device__ constexpr int slices_for(int hd) {
+  return hd > 128 ? 2 : 1;
+}
+// query rows a CTA and keys a K / V tile: the largest tiles of which the
+// Q block, the ring and the P tile fit the shared memory of a block (of
+// half an SM for a 128-thread CTA)
+__host__ __device__ constexpr int rows_for(int hd) {
+  return hd > 128 ? 64 : 128;
+}
+__host__ __device__ constexpr int keys_for(int hd) {
+  return slices_for(hd) > 1 ? 64
+                            : (threads_for(hd) == 128 ? 32 : (hd > 80 ? 48
+                                                                      : 64));
+}
+// floats between two rows of the Q block and of a K / V slice (the
+// columns padded by one float4), and between two keys of the P tile (the
+// rows padded by 4 or 8 floats): the paddings that leave the micro-tiles'
+// reads and writes free of bank conflicts (tests/test_torch_flash_f32.py)
+__host__ __device__ constexpr int q_stride(int hd) { return hd + 4; }
+__host__ __device__ constexpr int kv_stride(int hd) {
+  return hd / slices_for(hd) + 4;
+}
+__host__ __device__ constexpr int p_stride(int hd) {
+  return rows_for(hd) + (colgroups_for(hd) == 4 ? 8 : 4);
+}
+// dynamic shared memory: the Q block, kSlots K / V slices, the P tile
+__host__ __device__ constexpr int smem_bytes(int hd) {
+  return 4 * (rows_for(hd) * q_stride(hd) +
+              kSlots * keys_for(hd) * kv_stride(hd) +
+              keys_for(hd) * p_stride(hd));
+}
+
+template <int HD>
+struct Plan {
+  static constexpr int kThreads = threads_for(HD);
+  static constexpr int kCG = colgroups_for(HD);
+  static constexpr int kRG = kThreads / kCG;  // row groups
+  static constexpr int kDS = slices_for(HD);
+  static constexpr int kCols = HD / kDS;      // columns of a slice
+  static constexpr int kRows = rows_for(HD);
+  static constexpr int kKeys = keys_for(HD);
+  static constexpr int kTR = kRows / kRG;     // rows a thread owns
+  static constexpr int kTK = kKeys / kCG;     // keys of a tile it scores
+  static constexpr int kTC = kCols / 4 / kCG; // float4s of O a slice it owns
+  static constexpr int kQS = q_stride(HD);
+  static constexpr int kKS = kv_stride(HD);
+  static constexpr int kPS = p_stride(HD);
+  static constexpr int kSlot = kKeys * kKS;   // floats of a K / V slot
+  // the products' loops unrolled: float4 steps of Q K^T, keys of P V
+  // (further above hd 80, where each step feeds fewer FMAs)
+  static constexpr int kUnrollQK = HD > 80 ? 16 : 4;
+  static constexpr int kUnrollPV = HD > 80 ? 32 : 8;
+  static_assert(32 % kCG == 0, "a row's threads lie in one warp");
+  static_assert(kRows % kRG == 0 && (kTR == 2 || kTR % 4 == 0),
+                "rows a thread: a float2 or float4s of P");
+  static_assert(kKeys % kCG == 0 && kCols % (4 * kCG) == 0,
+                "keys and float4 columns split over the column groups");
+  static_assert(smem_bytes(HD) <= 232448, "shared memory of a block");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  // 16 bytes, or 16 zeros where `in` is false (src is not read)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   tc::smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issue the copies of COLS columns of rows [r0, r0 + ROWS) of one head
+// (row r at base + r * stride floats) into shared memory at dst, DS floats
+// a row, spread over the CTA's THREADS; rows at or past S are zero-filled
+template <int COLS, int ROWS, int DS, int THREADS>
+__device__ __forceinline__ void load_rows(float* dst, const float* base,
+                                          long long stride, int r0, int S) {
+  constexpr int kChunks = COLS / 4;
+  static_assert(ROWS * kChunks % THREADS == 0, "whole copies a thread");
+  // where the CTA covers whole rows at a time, a thread copies the same
+  // column at each step, rows THREADS / kChunks apart
+  constexpr bool kSameColumn = THREADS % kChunks == 0;
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / THREADS; ++i) {
+    const int e = i * THREADS + threadIdx.x;
+    const int row = kSameColumn
+                        ? i * (THREADS / kChunks) + threadIdx.x / kChunks
+                        : e / kChunks;
+    const int c = kSameColumn ? threadIdx.x % kChunks : e - row * kChunks;
+    const bool in = r0 + row < S;
+    cp_async16(dst + row * DS + 4 * c,
+               base + (in ? (r0 + row) * stride : 0) + 4 * c, in);
+  }
+}
+
+// One CTA a (query block, head, batch) item, heaviest blocks first.
+// Thread (rg, cg) = (tid / kCG, tid % kCG) owns rows rg + kRG * i (i <
+// kTR) of the block: their scores against keys cg + kCG * j (j < kTK) of
+// each tile, and their output columns at float4s cg + kCG * c (c < kTC) of
+// each column slice.  Per key tile t: K_t's slices land, S = Q K^T into
+// registers, the online softmax (the row max across the kCG threads of a
+// row by shuffles, one exp2 a score), O rescaled once, P to shared memory;
+// then V_t's slices land and O += P V.  Each slice waits on its cp.async
+// group and one CTA barrier, which also frees the slot of the slice before
+// it for the copies of the slice kSlots - 1 ahead.
+template <int HD>
+__global__ void __launch_bounds__(threads_for(HD), 256 / threads_for(HD))
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int H, int B, int g, Strides qs, Strides ks, Strides vs,
+                 Strides os, int causal, int window) {
+  using P = Plan<HD>;
+  constexpr int kThreads = P::kThreads;
+  constexpr int kCG = P::kCG, kRG = P::kRG, kTR = P::kTR, kTK = P::kTK;
+  constexpr int kDS = P::kDS, kCols = P::kCols, kTC = P::kTC;
+  constexpr int kQS = P::kQS, kKS = P::kKS, kPS = P::kPS;
+  constexpr int kRows = P::kRows, kKeys = P::kKeys;
+  extern __shared__ float4 smem_f4[];
+  float* const sq = reinterpret_cast<float*>(smem_f4);
+  float* const skv = sq + kRows * kQS;
+  float* const sp = skv + kSlots * P::kSlot;
+
+  const int nqb = (S + kRows - 1) / kRows;
+  const int qb = nqb - 1 - static_cast<int>(blockIdx.x) / (H * B);
+  const int hb = static_cast<int>(blockIdx.x) % (H * B);
+  const int h = hb % H;
+  const int b = hb / H;
+  const int q0 = qb * kRows;
+  const int rg = threadIdx.x / kCG;
+  const int cg = threadIdx.x % kCG;
+  // the keys some row of this block can see: the tiles of [lo, hi)
+  const int lo = window != 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(q0 + kRows, S) : S;
+  const int ntiles = hi > lo ? (hi - lo + kKeys - 1) / kKeys : 0;
+  const float* qh = q + b * qs.b + h * qs.h;
+  const float* kh = k + b * ks.b + (h / g) * ks.h;
+  const float* vh = v + b * vs.b + (h / g) * vs.h;
+
+  // key t0 + cg + kCG j is visible from row i when cmin[i] <= t0 + kCG j
+  // <= cmax[i]
+  int cmin[kTR], cmax[kTR];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    const int qp = q0 + rg + kRG * i;
+    cmin[i] = (window != 0 ? qp - window + 1 : -(1 << 30)) - cg;
+    cmax[i] = (causal ? min(qp, S - 1) : S - 1) - cg;
+  }
+  float4 acc[kTR][kDS * kTC];
+  float m[kTR], l[kTR];  // running max (log2 units), this thread's sum
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kDS * kTC; ++c)
+      acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // slice u of the ring: u = (2 t + part) kDS + ds, columns [ds kCols, +
+  // kCols) of K_t (part 0) or V_t (part 1), into slot u % kSlots
+  constexpr int kPerTile = 2 * kDS;
+  auto issue = [&](int u) {
+    const int part = u / kDS & 1;
+    const int col = u % kDS * kCols;
+    load_rows<kCols, kKeys, kKS, kThreads>(
+        skv + u % kSlots * P::kSlot, (part ? vh : kh) + col,
+        part ? vs.s : ks.s, lo + u / kPerTile * kKeys, S);
+  };
+  // slice u has landed and every thread is done with slice u - 1, whose
+  // slot takes slice u + kSlots - 1
+  auto arrive = [&](int u) {
+    cp_async_wait<kSlots - 2>();
+    __syncthreads();
+    if (u + kSlots - 1 < kPerTile * ntiles) issue(u + kSlots - 1);
+    cp_async_commit();
+  };
+
+  if (ntiles > 0) {
+    // the Q block travels with the first slice in the first group
+    load_rows<HD, kRows, kQS, kThreads>(sq, qh, qs.s, q0, S);
+#pragma unroll
+    for (int u = 0; u < kSlots - 1; ++u) {
+      if (u < kPerTile * ntiles) issue(u);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int t = 0; t < ntiles; ++t) {
+      const int t0 = lo + t * kKeys;
+      // S = Q K^T, slice by slice: each LDS.128 of Q feeds kTK float4
+      // products, each of K kTR
+      float s[kTR][kTK];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int j = 0; j < kTK; ++j) s[i][j] = 0.f;
+#pragma unroll
+      for (int ds = 0; ds < kDS; ++ds) {
+        const int u = kPerTile * t + ds;
+        arrive(u);
+        if (u == 0) {  // the Q block, once: times log2 e, for exp2
+          for (int e = threadIdx.x; e < kRows * HD / 4; e += kThreads) {
+            float4* p4 = reinterpret_cast<float4*>(
+                sq + e / (HD / 4) * kQS + 4 * (e % (HD / 4)));
+            float4 x = *p4;
+            x.x *= kLog2e;
+            x.y *= kLog2e;
+            x.z *= kLog2e;
+            x.w *= kLog2e;
+            *p4 = x;
+          }
+          __syncthreads();
+        }
+        const float* kt = skv + u % kSlots * P::kSlot;
+        const float* qt = sq + ds * kCols;
+#pragma unroll(P::kUnrollQK)
+        for (int d = 0; d < kCols / 4; ++d) {
+          float4 qv[kTR], kv[kTK];
+#pragma unroll
+          for (int i = 0; i < kTR; ++i)
+            qv[i] = *reinterpret_cast<const float4*>(
+                qt + (rg + kRG * i) * kQS + 4 * d);
+#pragma unroll
+          for (int j = 0; j < kTK; ++j)
+            kv[j] = *reinterpret_cast<const float4*>(
+                kt + (cg + kCG * j) * kKS + 4 * d);
+#pragma unroll
+          for (int i = 0; i < kTR; ++i)
+#pragma unroll
+            for (int j = 0; j < kTK; ++j) {
+              s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+              s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+              s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+              s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+            }
+        }
+      }
+
+      // the masks, on a tile that straddles an edge of the band only
+      if (tc::edge_tile(t0, kKeys, q0, kRows, S, causal, window)) {
+#pragma unroll
+        for (int i = 0; i < kTR; ++i)
+#pragma unroll
+          for (int j = 0; j < kTK; ++j) {
+            const int c = t0 + kCG * j;
+            if (c < cmin[i] || c > cmax[i]) s[i][j] = -CUDART_INF_F;
+          }
+      }
+      // the online softmax: m and mx are finite (>= kNegInf), so a masked
+      // score's exp2(-inf) is 0, and a row with no key yet keeps alpha = 1,
+      // l = 0 and acc = 0
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) {
+        float mx = m[i];
+#pragma unroll
+        for (int j = 0; j < kTK; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+        for (int off = 1; off < kCG; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float alpha = exp2f(m[i] - mx);
+        m[i] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kTK; ++j) {
+          s[i][j] = exp2f(s[i][j] - mx);
+          sum += s[i][j];
+        }
+        l[i] = l[i] * alpha + sum;
+#pragma unroll
+        for (int c = 0; c < kDS * kTC; ++c) {
+          acc[i][c].x *= alpha;
+          acc[i][c].y *= alpha;
+          acc[i][c].z *= alpha;
+          acc[i][c].w *= alpha;
+        }
+      }
+      // P^T to shared memory: key cg + kCG j's row holds this thread's kTR
+      // probabilities at rg * kTR
+#pragma unroll
+      for (int j = 0; j < kTK; ++j) {
+        float* dst = sp + (cg + kCG * j) * kPS + rg * kTR;
+        if constexpr (kTR == 2) {
+          *reinterpret_cast<float2*>(dst) = make_float2(s[0][j], s[1][j]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kTR; i += 4)
+            *reinterpret_cast<float4*>(dst + i) =
+                make_float4(s[i][j], s[i + 1][j], s[i + 2][j], s[i + 3][j]);
+        }
+      }
+
+      // O += P V, slice by slice: each key's LDS of P feeds kTC float4
+      // products, each LDS.128 of V kTR
+#pragma unroll
+      for (int ds = 0; ds < kDS; ++ds) {
+        const int u = kPerTile * t + kDS + ds;
+        arrive(u);
+        const float* vt = skv + u % kSlots * P::kSlot;
+#pragma unroll(P::kUnrollPV)
+        for (int n = 0; n < kKeys; ++n) {
+          float p[kTR];
+          if constexpr (kTR == 2) {
+            const float2 x = *reinterpret_cast<const float2*>(
+                sp + n * kPS + rg * 2);
+            p[0] = x.x;
+            p[1] = x.y;
+          } else {
+#pragma unroll
+            for (int i = 0; i < kTR; i += 4) {
+              const float4 x = *reinterpret_cast<const float4*>(
+                  sp + n * kPS + rg * kTR + i);
+              p[i] = x.x;
+              p[i + 1] = x.y;
+              p[i + 2] = x.z;
+              p[i + 3] = x.w;
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < kTC; ++c) {
+            const float4 vv = *reinterpret_cast<const float4*>(
+                vt + n * kKS + 4 * (cg + kCG * c));
+#pragma unroll
+            for (int i = 0; i < kTR; ++i) {
+              float4& a = acc[i][ds * kTC + c];
+              a.x = fmaf(p[i], vv.x, a.x);
+              a.y = fmaf(p[i], vv.y, a.y);
+              a.z = fmaf(p[i], vv.z, a.z);
+              a.w = fmaf(p[i], vv.w, a.w);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // the row sums across the row's threads; a row with no visible key
+  // divides 0 by 1e-30: exactly 0
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    float sum = l[i];
+#pragma unroll
+    for (int off = 1; off < kCG; off <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const int qp = q0 + rg + kRG * i;
+    if (qp >= S) continue;
+    const float den = fmaxf(sum, 1e-30f);
+    float* orow = o + b * os.b + static_cast<long long>(qp) * os.s + h * os.h;
+#pragma unroll
+    for (int ds = 0; ds < kDS; ++ds)
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) {
+        const float4 a = acc[i][ds * kTC + c];
+        *reinterpret_cast<float4*>(orow + ds * kCols + 4 * (cg + kCG * c)) =
+            make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
+      }
+  }
+}
+
+}  // namespace f32
+
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int B, int S, int H, int g, Strides qs, Strides ks,
                        Strides vs, Strides os, int causal, int window,
                        cudaStream_t stream) {
-  constexpr int kRows = rows_for(HD);
-  const dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_fwd_kernel<HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, g, qs, ks, vs,
-      os, causal, window);
+  constexpr int smem = f32::smem_bytes(HD);
+  const cudaError_t err = cudaFuncSetAttribute(
+      f32::flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const long long items =
+      static_cast<long long>((S + f32::rows_for(HD) - 1) / f32::rows_for(HD)) *
+      H * B;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  f32::flash_f32_kernel<HD>
+      <<<static_cast<unsigned>(items), f32::threads_for(HD), smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), S, H, B, g,
+          qs, ks, vs, os, causal, window);
   return cudaGetLastError();
 }
 
@@ -958,6 +1229,14 @@ bool shapes_ok(int B, int S, int H, int KV) {
          B <= 65535;
 }
 
+// cp.async's rule for the fp32 kernel: a 16-byte aligned base, and rows 16
+// bytes apart on every axis it steps (one of a single entry is never stepped)
+bool rows_aligned(const void* p, const Strides& s, int B, int S, int heads) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 &&
+         (B == 1 || s.b % 4 == 0) && (S == 1 || s.s % 4 == 0) &&
+         (heads == 1 || s.h % 4 == 0);
+}
+
 }  // namespace
 
 // Dynamic shared memory of the bf16 kernel at head dim hd, in bytes (0 for
@@ -986,10 +1265,41 @@ extern "C" int repro_flash_tc_plan(int hd, int* out) {
   return 0;
 }
 
+// Dynamic shared memory of the fp32 kernel at head dim hd, in bytes (0 for
+// a head dim it is not instantiated for).
+extern "C" int repro_flash_f32_smem_bytes(int hd) {
+  switch (hd) {
+#define CASE(D) \
+  case D:       \
+    return f32::smem_bytes(D);
+    REPRO_FLASH_HEAD_DIMS(CASE)
+#undef CASE
+    default:
+      return 0;
+  }
+}
+
+// The fp32 kernel's tiles at head dim hd: out[0..5] = query rows, keys per
+// tile, ring stages (K / V tile pairs), threads a CTA, threads a query row,
+// column slices a K / V tile.
+// Returns 0, or -1 for a head dim it is not instantiated for.
+extern "C" int repro_flash_f32_plan(int hd, int* out) {
+  if (repro_flash_f32_smem_bytes(hd) == 0) return -1;
+  out[0] = f32::rows_for(hd);
+  out[1] = f32::keys_for(hd);
+  out[2] = f32::kStages;
+  out[3] = f32::threads_for(hd);
+  out[4] = f32::colgroups_for(hd);
+  out[5] = f32::slices_for(hd);
+  return 0;
+}
+
 // fp32: q, o (B, S, H, hd); k, v (B, S, KV, hd); the last axis contiguous,
-// the others at the given element strides (batch, sequence, head).
-// Launches the CUDA-core kernel on `stream`, does not synchronise; returns
-// the launch's cudaError_t (0 on success).
+// the others at the given element strides (batch, sequence, head), every
+// base 16-byte aligned and every stride of an axis longer than 1 a
+// multiple of 4 (the wrapper copies a view that is not).  Launches the
+// CUDA-core kernel on `stream`, does not synchronise; returns the launch's
+// cudaError_t (0 on success).
 extern "C" int repro_flash_attention_f32(
     int hd, const void* q, const void* k, const void* v, void* o, int B,
     int S, int H, int KV, long long qsb, long long qss, long long qsh,
@@ -1001,6 +1311,9 @@ extern "C" int repro_flash_attention_f32(
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
+  if (!rows_aligned(q, qs, B, S, H) || !rows_aligned(k, ks, B, S, KV) ||
+      !rows_aligned(v, vs, B, S, KV) || !rows_aligned(o, os, B, S, H))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fn(q, k, v, o, B, S, H, H / KV, qs, ks, vs, os,
                              causal, window,
                              static_cast<cudaStream_t>(stream)));

@@ -9,13 +9,18 @@ kernels, replacing the Pallas TPU kernel
   runs on the tensor cores (Hopper's ``wgmma`` with fp32 accumulation, fed
   by TMA through an ``mbarrier`` ring by a producer warp, two or three
   consumer warpgroups, a persistent grid; P rounded to bf16 for the value
-  product), fp32 on the CUDA cores.  On a CPU tensor it runs :func:`flash_attention_plain`.
+  product), fp32 on the CUDA cores (fp32 FMAs in register tiles fed by
+  ``cp.async`` through a ring of K / V tiles in shared memory, one CTA a
+  query block).  On a CPU tensor it runs :func:`flash_attention_plain`.
 - The tensor-core kernel's tiles (:func:`tc_rows`, :func:`tc_keys`,
   :data:`TC_STAGES`, :func:`tc_slab`, :func:`tc_padded`,
   :func:`tc_smem_bytes`, :func:`tc_registers`) are mirrored here in
   Python, and its TMA tensor maps are computed here (:func:`tma_params`:
   dims, byte strides and box, checked against TMA's rules and encoded by
-  the library), so that the CPU tests check them.
+  the library), so that the CPU tests check them.  So are the CUDA-core
+  kernel's (:func:`f32_rows`, :func:`f32_keys`, :data:`F32_STAGES`,
+  :func:`f32_threads`, :func:`f32_colgroups`, :func:`f32_slices`,
+  :func:`f32_strides`, :func:`f32_smem_bytes`).
 - :func:`flash_attention_plain` is the twin: plain PyTorch in the Pallas
   kernel's arithmetic -- the reference's block rule (:func:`_choose_block`,
   the sequence padded to the blocks' lcm), an fp32 online softmax over kv
@@ -124,6 +129,68 @@ def tc_smem_bytes(hd: int) -> int:
             * tc_padded(hd) * 2 + TC_BARRIER_BYTES)
 
 
+#: K / V tile pairs in the CUDA-core (fp32) kernel's ``cp.async`` ring
+#: (``f32::kStages``): 2 * F32_STAGES slots, taking K_0, V_0, K_1, V_1, ...
+#: in turn (at hd 256 each as :func:`f32_slices` column slices)
+F32_STAGES = 2
+
+
+def f32_threads(hd: int) -> int:
+    """Threads a CTA of the CUDA-core kernel: 256, or 128 at hd 64 and 80,
+    where two CTAs share an SM (``f32::threads_for``)."""
+    return 128 if hd in (64, 80) else 256
+
+
+def f32_colgroups(hd: int) -> int:
+    """Threads of the CUDA-core kernel that share a query row: 8; 4 where
+    an eighth of the head dim is not whole float4s (hd 16, 80); 16 above
+    hd 80 (``f32::colgroups_for``)."""
+    if hd in (16, 80):
+        return 4
+    return 16 if hd > 80 else 8
+
+
+def f32_slices(hd: int) -> int:
+    """Column slices the CUDA-core kernel copies and consumes a K / V tile
+    in: 2 at hd 256, so that its ring holds 64-key tiles beside the Q
+    block, else 1 (``f32::slices_for``)."""
+    return 2 if hd > 128 else 1
+
+
+def f32_rows(hd: int) -> int:
+    """Query rows per CTA of the CUDA-core kernel: 128, or 64 at hd 256
+    (``f32::rows_for``)."""
+    return 64 if hd > 128 else 128
+
+
+def f32_keys(hd: int) -> int:
+    """Keys per K / V tile of the CUDA-core kernel: 64; 48 at hd 128 and
+    32 for a 128-thread CTA, the most the ring holds (``f32::keys_for``)."""
+    if f32_slices(hd) > 1:
+        return 64
+    if f32_threads(hd) == 128:
+        return 32
+    return 48 if hd > 80 else 64
+
+
+def f32_strides(hd: int) -> tuple:
+    """``(q, kv, p)``: floats between two rows of the CUDA-core kernel's Q
+    block and of a K / V slice (the columns and one float4 of padding), and
+    between two keys of its transposed P tile (the rows and 4 or 8 floats)
+    (``f32::q_stride``, ``f32::kv_stride``, ``f32::p_stride``)."""
+    return (hd + 4, hd // f32_slices(hd) + 4,
+            f32_rows(hd) + (8 if f32_colgroups(hd) == 4 else 4))
+
+
+def f32_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of the CUDA-core kernel at head dim ``hd``:
+    the Q block, 2 * :data:`F32_STAGES` K / V slices, the P tile, fp32
+    (``f32::smem_bytes``)."""
+    qs, ks, ps = f32_strides(hd)
+    keys = f32_keys(hd)
+    return 4 * (f32_rows(hd) * qs + 2 * F32_STAGES * keys * ks + keys * ps)
+
+
 def tma_params(t: torch.Tensor, rows: int) -> tuple:
     """``(dims, strides, box)`` of the TMA tensor map of ``t`` ``(B, S,
     heads, hd)``, bf16, for tiles of ``rows`` rows: dims ``(hd, S, heads,
@@ -204,10 +271,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q, k and v must be contiguous")
     route = flash_route(q.dtype)
-    if route == "tensor_core":
-        # TMA reads from a 16-byte aligned base at strides of 16 bytes
-        q, k, v = (t if _rows_aligned(t) else t.contiguous()
-                   for t in (q, k, v))
+    q, k, v = (_readable(t) for t in (q, k, v))
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if q.numel() == 0:
         return out
@@ -249,10 +313,19 @@ def launch_tc(lib: ctypes.CDLL, q, k, v, out, causal: bool, window: int,
         int(bool(causal)), int(window), stream)
 
 
+def _readable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as both kernels read it: itself where its rows pass
+    :func:`_rows_aligned` (TMA and 16-byte ``cp.async`` copies read rows
+    from a 16-byte aligned base at strides of 16 bytes), else a contiguous
+    copy."""
+    return t if _rows_aligned(t) else t.contiguous()
+
+
 def _rows_aligned(t: torch.Tensor) -> bool:
     """Every (batch, position, head) row of ``t`` starts on 16 bytes, and
     the axes TMA steps have positive strides below 2**40 bytes: TMA's rules
-    on a tensor map's base and strides (:func:`tma_params`)."""
+    on a tensor map's base and strides (:func:`tma_params`), which also
+    cover the CUDA-core kernel's 16-byte ``cp.async`` copies."""
     es = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
         s > 0 and s * es % 16 == 0 and s * es < 1 << 40
@@ -328,6 +401,8 @@ _SIGNATURES = {
     + [_LL] * 3 + [_I, _I, _P],
     "repro_flash_tc_smem_bytes": [_I],
     "repro_flash_tc_plan": [_I, ctypes.POINTER(ctypes.c_int)],
+    "repro_flash_f32_smem_bytes": [_I],
+    "repro_flash_f32_plan": [_I, ctypes.POINTER(ctypes.c_int)],
 }
 
 

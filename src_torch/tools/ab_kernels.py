@@ -30,6 +30,11 @@ main paths' shapes:
   to ``flash_attention_plain`` within 2e-2 (not bitwise: the kernels
   round differently), timed in turns with the library yardstick
   ``scaled_dot_product_attention`` beside them (``sdpa``; timed only);
+  then its fp32 (CUDA-core) route at the same shapes on fp32 values, the
+  parent's ``repro_flash_attention_f32``, this checkout's and the
+  ``f32`` variants, each held to the twin within 2e-5, timed in turns
+  beside ``sdpa`` on the fp32 values (the bf16 A/B skips the ``f32``
+  variants, the fp32 A/B the others);
 - ``scatter_wsum``: one site's 0xF5 frame in the federated LLM of
   ``chip_smoke.py`` (danube at 4 layers, 441,735,680 parameters, TopK at
   5%: 22,086,784 int8 values, a scale per 1024, at sorted unique indices
@@ -116,6 +121,19 @@ VARIANTS = {
              "auto softmax = [&](int t0, float (&alpha)[2]) {\n"
              "      alpha[0] = alpha[1] = 1.f;\n"
              "      if (t0 >= 0) return;")],
+        # the fp32 route's timing probes: no exp2; no mask and no softmax
+        # (P = S); no P V; no Q K^T
+        "probe_f32_no_exp2": [("s[i][j] = exp2f(s[i][j] - mx);",
+                               "s[i][j] = s[i][j] - mx;")],
+        "probe_f32_no_softmax": [
+            ("if (tc::edge_tile(t0, kKeys, q0, kRows, S, causal, window)) {",
+             "if (t0 < 0) {"),
+            ("for (int i = 0; i < kTR; ++i) {\n        float mx = m[i];",
+             "for (int i = 0; i < 0; ++i) {\n        float mx = m[i];")],
+        "probe_f32_no_pv": [("for (int n = 0; n < kKeys; ++n) {",
+                             "for (int n = 0; n < 0; ++n) {")],
+        "probe_f32_no_qk": [("for (int d = 0; d < kCols / 4; ++d) {",
+                             "for (int d = 0; d < 0; ++d) {")],
     },
     "decode_rows": {
         # write-back stores (not evict-first)
@@ -386,7 +404,9 @@ def flash_call(lib, var: str):
             if err:
                 raise RuntimeError(f"flash parent launch: error {err}")
         return call
-    FA.bind(lib)
+    fn = lib.repro_flash_attention_tc
+    fn.restype = ctypes.c_int
+    fn.argtypes = FA._SIGNATURES["repro_flash_attention_tc"]
 
     def call(q, k, v, out, causal, window):
         err = FA.launch_tc(lib, q, k, v, out, causal, window, _stream())
@@ -404,61 +424,84 @@ FLASH_SHAPES = {"hd80": CS.FLASH_SERVE, "hd256": CS.FLASH_SERVE_RG,
                 "hd64_noncausal": CS.FLASH_FAMILIES["whisper-medium"]}
 
 
-def ab_flash(libs: dict, card: str, rounds: int):
-    """Each library against ``flash_attention_plain`` within 2e-2 at each
-    shape of :data:`FLASH_SHAPES`, then all timed in turns with the
-    library yardstick ``scaled_dot_product_attention`` (as
-    ``chip_smoke.phase_flash_timing`` calls it) beside them."""
+def f32_call(lib, var: str):
+    """call(q, k, v, out, causal, window): one fp32 launch of ``lib``'s
+    CUDA-core kernel (the parent's and this checkout's share the entry
+    point)."""
+    fn = lib.repro_flash_attention_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = FA._SIGNATURES["repro_flash_attention_f32"]
+
+    def call(q, k, v, out, causal, window):
+        B, S, H, hd = q.shape
+        st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        err = fn(hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), B, S, H, k.shape[2], *st, int(causal),
+                 int(window), _stream())
+        if err:
+            raise RuntimeError(f"flash f32 {var} launch: error {err}")
+    return call
+
+
+def ab_flash(libs: dict, card: str, rounds: int, dtype=torch.bfloat16):
+    """One route of each library against ``flash_attention_plain`` within
+    ``chip_smoke.FLASH_TOL`` at each shape of :data:`FLASH_SHAPES`, then
+    all timed in turns with the library yardstick
+    ``scaled_dot_product_attention`` (as ``chip_smoke.phase_flash_timing``
+    calls it) on the same values beside them.  bf16: the tensor-core
+    kernel, its bound the bf16 tensor cores' (the ``f32`` variants
+    skipped); fp32: the CUDA-core kernel, its bound the fp32 CUDA cores'
+    (only the ``f32`` variants beside the parent's and this one)."""
+    route = FA.flash_route(dtype)
+    f32 = route == "cuda_core"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
-    gen.manual_seed(30)
+    gen.manual_seed(31 if f32 else 30)
+    tol = CS.FLASH_TOL[dtype]
     rows = []
     for tag, f in FLASH_SHAPES.items():
         q, k, v = CS._flash_inputs(gen, f["B"], f["S"], f["H"], f["KV"],
-                                   f["hd"], torch.bfloat16, dev)
+                                   f["hd"], dtype, dev)
         causal, window = f["causal"], f["window"]
         twin = FA.flash_attention_plain(q, k, v, causal=causal,
                                         window=window)
         out = torch.empty_like(q)
         fns, errs = {}, {}
         for var, (lib, _) in libs.items():
-            call = flash_call(lib, var)
+            if var not in ("parent", "new") and ("f32" in var) != f32:
+                continue
+            call = (f32_call if f32 else flash_call)(lib, var)
             out.fill_(float("nan"))
             call(q, k, v, out, causal, window)
             torch.cuda.synchronize()
-            err, exc = CS._excess(out, twin, CS.FLASH_TOL[torch.bfloat16])
+            err, exc = CS._excess(out, twin, tol)
             errs[var] = err
-            if not _checked("flash_attention", var, exc <= 1.0):
+            if not _checked(f"flash_attention {route}", var, exc <= 1.0):
                 continue
             fns[var] = (lambda c: lambda: c(q, k, v, out, causal,
                                             window))(call)
         del twin
-        S = f["S"]
-        qpos = torch.arange(S, device=dev)[:, None]
-        kpos = torch.arange(S, device=dev)[None, :]
-        mask = None
-        if causal:
-            mask = kpos <= qpos
-        if window:
-            band = kpos > qpos - window
-            mask = band if mask is None else mask & band
+        mask = CS.flash_mask(f["S"], causal, window, dev)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         fns["sdpa"] = lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, scale=1.0, enable_gqa=True)
         torch.use_deterministic_algorithms(False)
         try:
-            times = in_turns(fns, rounds, reps=20)
+            times = in_turns(fns, rounds, reps=3 if f32 else 20)
         finally:
             torch.use_deterministic_algorithms(True)
-        bound_ms, bound_by = CS.flash_bound(f["B"], S, f["H"], f["KV"],
-                                            f["hd"], window, causal, 2)[:2]
+        bound = CS.flash_bound(f["B"], f["S"], f["H"], f["KV"], f["hd"],
+                               window, causal, dtype.itemsize)
+        bound_ms, bound_by = (bound[2], "operations") if f32 else bound[:2]
         med = {n: statistics.median(t) for n, t in times.items()}
-        rows.append({"kernel": "flash_attention", "card": card,
-                     "shape": tag, "dims": f, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "tol": 2e-2,
+        rows.append({"kernel": "flash_attention", "route": route,
+                     "card": card, "shape": tag, "dims": f,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "tol": tol,
                      "max_abs_vs_twin": errs, "median_ms": med,
                      "share_of_bound": {n: bound_ms / m
                                         for n, m in med.items()},
+                     "over_sdpa": {n: m / med["sdpa"]
+                                   for n, m in med.items()},
                      "ms": times})
         del q, k, v, out, qt, kt, vt, mask
         torch.cuda.empty_cache()
@@ -594,7 +637,9 @@ def main(argv=None) -> int:
     if "scatter_wsum" in built:
         results.append(ab_scatter(built["scatter_wsum"], card, args.rounds))
     if "flash_attention" in built:
-        results += ab_flash(built["flash_attention"], card, args.rounds)
+        for dtype in (torch.bfloat16, torch.float32):
+            results += ab_flash(built["flash_attention"], card, args.rounds,
+                                dtype)
     for line in results:
         print(json.dumps(line), flush=True)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
