@@ -84,6 +84,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.fl.flat import (QCHUNK, FlatParams, Layout, TileSource,
                                  memo_token, np_dtype, to_bf16)
 from repro_torch.sharding import agg_spec, shard_bounds  # noqa: F401
@@ -562,7 +563,8 @@ class StreamingWeightedSum:
         if self.backend == "torch":
             self._live()
             if n:
-                self._fold_torch(_tile(fp), sw)
+                with obs.span("fold.add"):
+                    self._fold_torch(_tile(fp), sw)
         else:
             acc = self._acc_vec()
             for lo in range(0, n, CHUNK):
@@ -632,32 +634,33 @@ class StreamingWeightedSum:
         the torch backend each span of traveled coordinates is one
         ``scatter_wsum`` launch into the device accumulator (bitwise the
         numpy chain)."""
-        if self.backend == "torch":
-            self._live()
-        self._record_base(sp, w)
-        sw = np.float64(w)
-        if self.shards:
-            if self._pipe is not None:
-                # keep the (arrival, shard) fold order serial: queued
-                # dense decodes fold before this sparse arrival
-                self._pipe.drain(self._fold_item)
-            staged: Dict[Any, Any] = {}
-            for si, (lo, hi) in enumerate(self._bounds):
-                if hi <= lo:
-                    continue
-                if self.backend == "torch":
-                    self._scatter_spans_torch(sp, lo, hi, self._dsacc[si],
-                                              sw, staged)
-                else:
-                    self._scatter_spans(sp, lo, hi, self._sacc[si], sw)
-        elif self.backend == "torch":
-            self._scatter_spans_torch(sp, 0, self.layout.total_size,
-                                      self._dacc, sw, {})
-        else:
-            self._scatter_spans(sp, 0, self.layout.total_size,
-                                self._acc_vec(), sw)
-        self.total_w += float(w)
-        self.count += 1
+        with obs.span("fold.add"):
+            if self.backend == "torch":
+                self._live()
+            self._record_base(sp, w)
+            sw = np.float64(w)
+            if self.shards:
+                if self._pipe is not None:
+                    # keep the (arrival, shard) fold order serial: queued
+                    # dense decodes fold before this sparse arrival
+                    self._pipe.drain(self._fold_item)
+                staged: Dict[Any, Any] = {}
+                for si, (lo, hi) in enumerate(self._bounds):
+                    if hi <= lo:
+                        continue
+                    if self.backend == "torch":
+                        self._scatter_spans_torch(sp, lo, hi, self._dsacc[si],
+                                                  sw, staged)
+                    else:
+                        self._scatter_spans(sp, lo, hi, self._sacc[si], sw)
+            elif self.backend == "torch":
+                self._scatter_spans_torch(sp, 0, self.layout.total_size,
+                                          self._dacc, sw, {})
+            else:
+                self._scatter_spans(sp, 0, self.layout.total_size,
+                                    self._acc_vec(), sw)
+            self.total_w += float(w)
+            self.count += 1
 
     def _scatter_spans(self, sp, lo: int, hi: int, acc: np.ndarray,
                        sw: np.float64) -> None:
@@ -694,17 +697,19 @@ class StreamingWeightedSum:
             spans = list(sp.iter_spans(lo, hi))
         if not spans:
             return
-        vals, scales, index = self._stage_sparse(sp, acc.device, staged)
-        for p0, p1, dest in spans:
-            if dest is None:
-                dest = index[p0:p1]
-                if lo:
-                    dest = dest - lo
-            else:
-                dest = dest.start
-            agg_reduce.scatter_wsum(acc, dest, vals[p0:p1], float(sw),
-                                    scales=scales, qchunk=sp.qchunk,
-                                    pos0=p0)
+        with obs.span("fold.add.stage"):
+            vals, scales, index = self._stage_sparse(sp, acc.device, staged)
+        with obs.span("fold.add.scatter"):
+            for p0, p1, dest in spans:
+                if dest is None:
+                    dest = index[p0:p1]
+                    if lo:
+                        dest = dest - lo
+                else:
+                    dest = dest.start
+                agg_reduce.scatter_wsum(acc, dest, vals[p0:p1], float(sw),
+                                        scales=scales, qchunk=sp.qchunk,
+                                        pos0=p0)
 
     def _stage_sparse(self, sp, dev, staged: Dict[Any, Any]):
         """``(values, scales, index)`` of sparse arrival ``sp`` as tensors
@@ -865,26 +870,35 @@ class StreamingWeightedSum:
         from repro_torch.kernels import agg_reduce
         import torch
 
-        inv = np.float64(1.0 / self.total_w)
-        accs = self._end_torch()
-        bounds = self._bounds if self.shards else \
-            ((0, self.layout.total_size),)
-        out = FlatParams.zeros(self.layout)
-        n = self.layout.total_size
-        u = self.layout.uniform_dtype
-        direct = u in ("float32", "float64")
-        ovec = out.math_view() if direct else np.empty(n, np.float64)
-        for a, (lo, hi) in zip(accs, bounds):
-            if hi <= lo:
-                continue
-            a = self._close_torch(a, lo, hi, inv, self.total_w)
-            if u == "float32":
-                a = a.to(torch.float32)
-            ovec[lo:hi] = agg_reduce.to_host(a)
-        self._deferred.clear()
-        if not direct:
-            _scatter_leaves(ovec, self.layout, out)
-        return out
+        with obs.span("fold.finalize"):
+            inv = np.float64(1.0 / self.total_w)
+            accs = self._end_torch()
+            bounds = self._bounds if self.shards else \
+                ((0, self.layout.total_size),)
+            n = self.layout.total_size
+            u = self.layout.uniform_dtype
+            direct = u in ("float32", "float64")
+            with obs.span("fold.finalize.assemble"):
+                out = FlatParams.zeros(self.layout)
+                ovec = out.math_view() if direct else np.empty(n, np.float64)
+            for a, (lo, hi) in zip(accs, bounds):
+                if hi <= lo:
+                    continue
+                with obs.span("fold.finalize.close"):
+                    a = self._close_torch(a, lo, hi, inv, self.total_w)
+                if u == "float32":
+                    with obs.span("fold.finalize.cast"):
+                        a = a.to(torch.float32)
+                with obs.span("fold.finalize.download"):
+                    h = agg_reduce.to_host(a)
+                with obs.span("fold.finalize.assemble"):
+                    ovec[lo:hi] = h
+                del h
+            self._deferred.clear()
+            if not direct:
+                with obs.span("fold.finalize.assemble"):
+                    _scatter_leaves(ovec, self.layout, out)
+            return out
 
     # ------------------------------------------------------ sharded mode
     @staticmethod

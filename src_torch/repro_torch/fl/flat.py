@@ -33,6 +33,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
+
 NDArrays = List[np.ndarray]
 
 # ---------------------------------------------------------------------------
@@ -751,33 +753,35 @@ class SparseDelta:
         # unsorted/overlapping coordinates would silently break the
         # searchsorted windowing and the unique-scatter determinism — the
         # ValueError here demotes the sender to a per-node failure instead
-        if imode == "coo":
-            if indices.ndim != 1 or indices.size != values.size:
-                raise ValueError("coo sparse delta: indices/values mismatch")
-            if indices.size and (int(indices[0]) < 0
-                                 or int(indices[-1]) >= n
-                                 or np.any(np.diff(indices) <= 0)):
-                raise ValueError(
-                    "coo sparse delta: indices must be sorted, unique and "
-                    "within the layout")
-            self._starts = self._stops = self._offsets = None
-        else:
-            r = indices.reshape(-1, 2)
-            if np.any(r[:, 0] >= r[:, 1]) or (r.size and (
-                    int(r[0, 0]) < 0 or int(r[-1, 1]) > n
-                    or np.any(r[1:, 0] < r[:-1, 1]))):
-                raise ValueError(
-                    "ranges sparse delta: [start, stop) ranges must be "
-                    "sorted, non-overlapping and within the layout")
-            lens = (r[:, 1] - r[:, 0]).astype(np.int64)
-            if int(lens.sum()) != values.size:
-                raise ValueError("ranges sparse delta: values length != "
-                                 "total range coverage")
-            self._starts = np.ascontiguousarray(r[:, 0])
-            self._stops = np.ascontiguousarray(r[:, 1])
-            off = np.zeros(len(r) + 1, np.int64)
-            np.cumsum(lens, out=off[1:])
-            self._offsets = off
+        with obs.span("fl.decode.check"):
+            if imode == "coo":
+                if indices.ndim != 1 or indices.size != values.size:
+                    raise ValueError(
+                        "coo sparse delta: indices/values mismatch")
+                if indices.size and (int(indices[0]) < 0
+                                     or int(indices[-1]) >= n
+                                     or np.any(np.diff(indices) <= 0)):
+                    raise ValueError(
+                        "coo sparse delta: indices must be sorted, unique and "
+                        "within the layout")
+                self._starts = self._stops = self._offsets = None
+            else:
+                r = indices.reshape(-1, 2)
+                if np.any(r[:, 0] >= r[:, 1]) or (r.size and (
+                        int(r[0, 0]) < 0 or int(r[-1, 1]) > n
+                        or np.any(r[1:, 0] < r[:-1, 1]))):
+                    raise ValueError(
+                        "ranges sparse delta: [start, stop) ranges must be "
+                        "sorted, non-overlapping and within the layout")
+                lens = (r[:, 1] - r[:, 0]).astype(np.int64)
+                if int(lens.sum()) != values.size:
+                    raise ValueError("ranges sparse delta: values length != "
+                                     "total range coverage")
+                self._starts = np.ascontiguousarray(r[:, 0])
+                self._stops = np.ascontiguousarray(r[:, 1])
+                off = np.zeros(len(r) + 1, np.int64)
+                np.cumsum(lens, out=off[1:])
+                self._offsets = off
         if self.vmode == "q8":
             nchunks = -(-values.size // self.qchunk)
             if scales is None or scales.size != nchunks:

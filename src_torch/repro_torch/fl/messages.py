@@ -87,6 +87,7 @@ Buffer = Union[bytes, bytearray, memoryview]
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.fl.flat import (FlatParams, Layout, PartialSum, QCHUNK,
                                  QuantParams, SparseDelta, WIRE_MAGIC_LO,
                                  WIRE_MAGICS, dtype_name, layout_for,
@@ -206,10 +207,11 @@ def _unframe(b: Buffer, writable: bool = False
     per-array codec allowed.  (Quantized frames ignore it — materializing
     them allocates fresh writable arrays anyway.)
     """
-    head, hlen = _head_of(b)
-    if "l" not in head:
-        return head, None
-    layout = layout_for([(d, tuple(s)) for d, s in head["l"]])
+    with obs.span("fl.decode.header"):
+        head, hlen = _head_of(b)
+        if "l" not in head:
+            return head, None
+        layout = layout_for([(d, tuple(s)) for d, s in head["l"]])
     off = _aligned(5 + hlen)
     if b[0] == FLAT_MAGIC:
         fp = FlatParams.from_buffer(b, layout, offset=off)
@@ -631,22 +633,23 @@ def encode_fit_res(x: FitRes, codec: Optional[str] = None,
 
 
 def decode_fit_res(b: bytes) -> FitRes:
-    if _is_framed(b):
-        head, p = _unframe(b)
-        if isinstance(p, PartialSum):
-            # edge tier: num_examples reports the contributing-client
-            # count; the fold weight is p.total_w, read by the accumulator
-            return FitRes(None, p.count, head.get("m", {}), partial=p)
-        if isinstance(p, SparseDelta):
-            # stays sparse: the fold scatters the traveled coordinates
-            # once the server re-attaches the round base
-            return FitRes(None, head["n"], head.get("m", {}), sparse=p)
-        if isinstance(p, QuantParams):
-            # hot path stays compressed: kernels stream it via f64_chunk
-            return FitRes(None, head["n"], head.get("m", {}), quant=p)
-        return FitRes(p.to_arrays(), head["n"], head.get("m", {}), flat=p)
-    d = msgpack_lite.unpackb(b, raw=False)
-    return FitRes([_unpack_array(a) for a in d["p"]], d["n"], d["m"])
+    with obs.span("fl.decode"):
+        if _is_framed(b):
+            head, p = _unframe(b)
+            if isinstance(p, PartialSum):
+                # edge tier: num_examples reports the contributing-client
+                # count; the fold weight is p.total_w, read by the accumulator
+                return FitRes(None, p.count, head.get("m", {}), partial=p)
+            if isinstance(p, SparseDelta):
+                # stays sparse: the fold scatters the traveled coordinates
+                # once the server re-attaches the round base
+                return FitRes(None, head["n"], head.get("m", {}), sparse=p)
+            if isinstance(p, QuantParams):
+                # hot path stays compressed: kernels stream it via f64_chunk
+                return FitRes(None, head["n"], head.get("m", {}), quant=p)
+            return FitRes(p.to_arrays(), head["n"], head.get("m", {}), flat=p)
+        d = msgpack_lite.unpackb(b, raw=False)
+        return FitRes([_unpack_array(a) for a in d["p"]], d["n"], d["m"])
 
 
 def encode_partial_fit_res(ps: PartialSum,

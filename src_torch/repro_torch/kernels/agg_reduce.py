@@ -64,6 +64,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.fl.flat import is_bf16
 
 DEFAULT_QCHUNK = 1024
@@ -100,15 +101,28 @@ def _host_tensor(a: np.ndarray) -> torch.Tensor:
     return t.view(torch.bfloat16) if bf16 else t
 
 
+def _crossed(name: str, device, nbytes: int) -> None:
+    """Count ``nbytes`` under ``name`` if they crossed the host link: to
+    or from a device other than the CPU."""
+    if torch.device(device).type != "cpu":
+        obs.count(name, nbytes)
+
+
 def to_device(a: np.ndarray, device) -> torch.Tensor:
     """A numpy array as a tensor on ``device`` (a copy unless the device
     is the CPU)."""
-    return _host_tensor(a).to(device)
+    with obs.span("copy.h2d"):
+        t = _host_tensor(a).to(device)
+    _crossed("copy.h2d_bytes.pageable", device, a.nbytes)
+    return t
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A tensor as a host numpy array (waits for the device)."""
-    return t.detach().cpu().numpy()
+    with obs.span("copy.d2h"):
+        h = t.detach().cpu().numpy()
+    _crossed("copy.d2h_bytes.pageable", t.device, h.nbytes)
+    return h
 
 
 class PinnedStage:
@@ -139,23 +153,28 @@ class PinnedStage:
             if t is not None:
                 nb = t.numel() * t.element_size()
                 total += -(-nb // self.ALIGN) * self.ALIGN
-        if self._sent is not None:
-            self._sent.synchronize()
-        if self._buf is None or self._buf.numel() < total:
-            self._buf = torch.empty(max(total, 1), dtype=torch.uint8,
-                                    pin_memory=True)
-        with torch.cuda.device(device):
-            out = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
-            for t, off in zip(host, offs):
-                raw = torch.empty(0, dtype=torch.uint8) if t is None \
-                    else t.view(torch.uint8)
-                for c in range(0, raw.numel(), self.CHUNK):
-                    e = min(c + self.CHUNK, raw.numel())
-                    pin = self._buf[off + c:off + e]
-                    pin.copy_(raw[c:e])
-                    out[off + c:off + e].copy_(pin, non_blocking=True)
-            self._sent = torch.cuda.Event()
-            self._sent.record(torch.cuda.current_stream(device))
+        with obs.span("copy.h2d"):
+            if self._sent is not None:
+                self._sent.synchronize()
+            if self._buf is None or self._buf.numel() < total:
+                self._buf = torch.empty(max(total, 1), dtype=torch.uint8,
+                                        pin_memory=True)
+            with torch.cuda.device(device):
+                out = torch.empty(max(total, 1), dtype=torch.uint8,
+                                  device=device)
+                for t, off in zip(host, offs):
+                    raw = torch.empty(0, dtype=torch.uint8) if t is None \
+                        else t.view(torch.uint8)
+                    for c in range(0, raw.numel(), self.CHUNK):
+                        e = min(c + self.CHUNK, raw.numel())
+                        pin = self._buf[off + c:off + e]
+                        pin.copy_(raw[c:e])
+                        out[off + c:off + e].copy_(pin, non_blocking=True)
+                self._sent = torch.cuda.Event()
+                self._sent.record(torch.cuda.current_stream(device))
+        _crossed("copy.h2d_bytes.pinned", device,
+                 sum(t.numel() * t.element_size()
+                     for t in host if t is not None))
         return [None if t is None
                 else out[off:off + t.numel() * t.element_size()].view(t.dtype)
                 for t, off in zip(host, offs)]
@@ -166,10 +185,13 @@ def stack_to_device(rows: Sequence[np.ndarray], device) -> torch.Tensor:
     ``device``, row by row, with no host-side stack (bf16 bit rows become
     ``torch.bfloat16``)."""
     first = _host_tensor(rows[0])
-    out = torch.empty((len(rows), first.numel()), dtype=first.dtype,
-                      device=device)
-    for i, r in enumerate(rows):
-        out[i].copy_(first if i == 0 else _host_tensor(r))
+    with obs.span("copy.h2d"):
+        out = torch.empty((len(rows), first.numel()), dtype=first.dtype,
+                          device=device)
+        for i, r in enumerate(rows):
+            out[i].copy_(first if i == 0 else _host_tensor(r))
+    _crossed("copy.h2d_bytes.pageable", device,
+             out.numel() * out.element_size())
     return out
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.sharding import (batch_spec, constrain_scores, from_local,
                                   gather_seq, model_axis_size, model_dim,
@@ -105,21 +106,23 @@ def _attend(q, k, v, *, window: int, causal: bool, chunk: int,
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd)
     C = chunk_size(S, chunk)
-    # the reference's preferred_element_type=float32: fp32 products, no
-    # rounding of the scores to the input dtype
-    k32 = k.float()
     kpos = torch.arange(S, device=q.device)[None, :]
     pin = constrain or (lambda x: x)
     ctx = []
-    for start in range(0, S, C):
-        q_chunk = qg[:, start:start + C].float()
-        scores = pin(torch.einsum("bqkgh,bskh->bkgqs", q_chunk, k32))
-        mask = _mask(C, start, kpos, causal, window)
-        scores = pin(torch.where(mask, scores, NEG_INF))
-        w = torch.softmax(scores, dim=-1).to(q.dtype)
-        del scores
-        ctx.append(torch.einsum("bkgqs,bskh->bqkgh", w, v))
-    return torch.cat(ctx, dim=1).reshape(B, S, H, v.shape[-1])
+    with obs.span("attention.core"):
+        # the reference's preferred_element_type=float32: fp32 products,
+        # no rounding of the scores to the input dtype
+        k32 = k.float()
+        for start in range(0, S, C):
+            q_chunk = qg[:, start:start + C].float()
+            scores = pin(torch.einsum("bqkgh,bskh->bkgqs", q_chunk, k32))
+            mask = _mask(C, start, kpos, causal, window)
+            scores = pin(torch.where(mask, scores, NEG_INF))
+            w = torch.softmax(scores, dim=-1).to(q.dtype)
+            del scores
+            ctx.append(torch.einsum("bkgqs,bskh->bqkgh", w, v))
+        ctx = torch.cat(ctx, dim=1)
+    return ctx.reshape(B, S, H, v.shape[-1])
 
 
 def _heads(x, g: int) -> torch.Tensor:
@@ -167,23 +170,26 @@ def _key_split(q, k, v, *, window: int, causal: bool, chunk: int):
     b, s = kl.shape[0], kl.shape[1]
     qg = ql.reshape(b, S, KV, H // KV, hd)
     C = chunk_size(S, chunk)
-    k32 = kl.float()
     kpos = model_rank() * s + torch.arange(s, device=ql.device)[None, :]
     ctx = []
-    for start in range(0, S, C):
-        q_chunk = qg[:, start:start + C].float()
-        scores = torch.einsum("bqkgh,bskh->bkgqs", q_chunk, k32)
-        mask = _mask(C, start, kpos, causal, window)
-        scores = torch.where(mask, scores, NEG_INF)
-        p = torch.exp(scores - model_max(
-            torch.amax(scores, dim=-1, keepdim=True)))
-        del scores
-        # each rank's weights use the total: their gradients add up
-        den = model_sum(torch.sum(p, dim=-1, keepdim=True), sum_grads=True)
-        w = (p / den).to(q.dtype)
-        del p
-        ctx.append(torch.einsum("bkgqs,bskh->bqkgh", w, vl))
-    ctx = scatter_seq(torch.cat(ctx, dim=1))
+    with obs.span("attention.core"):
+        k32 = kl.float()
+        for start in range(0, S, C):
+            q_chunk = qg[:, start:start + C].float()
+            scores = torch.einsum("bqkgh,bskh->bkgqs", q_chunk, k32)
+            mask = _mask(C, start, kpos, causal, window)
+            scores = torch.where(mask, scores, NEG_INF)
+            p = torch.exp(scores - model_max(
+                torch.amax(scores, dim=-1, keepdim=True)))
+            del scores
+            # each rank's weights use the total: their gradients add up
+            den = model_sum(torch.sum(p, dim=-1, keepdim=True),
+                            sum_grads=True)
+            w = (p / den).to(q.dtype)
+            del p
+            ctx.append(torch.einsum("bkgqs,bskh->bqkgh", w, vl))
+        ctx = torch.cat(ctx, dim=1)
+    ctx = scatter_seq(ctx)
     return from_local(ctx.reshape(b, s, H, vl.shape[-1]),
                       (B, S, H, v.shape[-1]), batch_spec(q.shape, 1))
 

@@ -13,6 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.config import ModelConfig
 from repro_torch.models.base import ParamSpec, activation
 from repro_torch.sharding import (axes_sum, batch_axes, batch_ranks,
@@ -168,42 +169,47 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig,
     G, Tg, C = _capacity(T, m)
     dev = x.device
 
-    probs, logits = router_probs(params, x, cfg)   # (B,S,E) fp32
-    probs_g = probs.reshape(G, Tg, E)
-    gate_vals, expert_idx = top_k(probs_g, k)                 # (G,Tg,k)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
-
-    # ---- aux losses (Switch-style load balance + router z-loss) ----------
-    experts = torch.arange(E, device=dev)
-    density = probs_g.reshape(T, E).mean(dim=0)
-    usage_oh = (expert_idx[..., None] == experts).float()    # (G,Tg,k,E)
-    usage = usage_oh.sum(2).reshape(T, E).mean(dim=0)
-    aux_loss = E * torch.sum(density * usage) * m.router_aux_loss
-    z_loss = m.router_z_loss * torch.mean(
-        torch.square(torch.logsumexp(logits.reshape(T, E), dim=-1)))
-
-    # ---- per-group positions + dispatch/combine masks ---------------------
     dtype = x.dtype
-    dispatch, combine, keeps = _masks(expert_idx, gate_vals, E, C, dtype)
-    kept = torch.zeros((), dtype=torch.float32, device=dev)
-    for keep in keeps:
-        kept = kept + keep.float().mean()
+    with obs.span("moe.route"):
+        probs, logits = router_probs(params, x, cfg)   # (B,S,E) fp32
+        probs_g = probs.reshape(G, Tg, E)
+        gate_vals, expert_idx = top_k(probs_g, k)             # (G,Tg,k)
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(
+            min=1e-9)
+
+        # ---- aux losses (Switch-style load balance + router z-loss) ------
+        experts = torch.arange(E, device=dev)
+        density = probs_g.reshape(T, E).mean(dim=0)
+        usage_oh = (expert_idx[..., None] == experts).float()  # (G,Tg,k,E)
+        usage = usage_oh.sum(2).reshape(T, E).mean(dim=0)
+        aux_loss = E * torch.sum(density * usage) * m.router_aux_loss
+        z_loss = m.router_z_loss * torch.mean(
+            torch.square(torch.logsumexp(logits.reshape(T, E), dim=-1)))
+
+        # ---- per-group positions + dispatch/combine masks -----------------
+        dispatch, combine, keeps = _masks(expert_idx, gate_vals, E, C, dtype)
+        kept = torch.zeros((), dtype=torch.float32, device=dev)
+        for keep in keeps:
+            kept = kept + keep.float().mean()
 
     xg = constrain_moe(x.reshape(G, Tg, d))
     dispatch = constrain_moe(dispatch, expert_dim=2)
     combine = constrain_moe(combine, expert_dim=2)
 
     # ---- dispatch -> expert FFN -> combine ---------------------------------
-    dispatched = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+    with obs.span("moe.dispatch"):
+        dispatched = torch.einsum("gsec,gsd->gecd", dispatch, xg)
     dispatched = constrain_moe(dispatched, expert_dim=1)
     eaxes = ("experts", "embed_expert", "mlp")
-    w = {"wi_up": cast_weight(params["wi_up"], dtype, eaxes),
-         "wi_gate": cast_weight(params["wi_gate"], dtype, eaxes),
-         "wo": cast_weight(params["wo"], dtype,
-                           ("experts", "mlp", "embed_expert"))}
-    expert_out = constrain_moe(_experts_ffn(dispatched, w, cfg),
-                               expert_dim=1)
-    y = torch.einsum("gsec,gecd->gsd", combine, expert_out)
+    with obs.span("moe.experts"):
+        w = {"wi_up": cast_weight(params["wi_up"], dtype, eaxes),
+             "wi_gate": cast_weight(params["wi_gate"], dtype, eaxes),
+             "wo": cast_weight(params["wo"], dtype,
+                               ("experts", "mlp", "embed_expert"))}
+        expert_out = _experts_ffn(dispatched, w, cfg)
+    expert_out = constrain_moe(expert_out, expert_dim=1)
+    with obs.span("moe.dispatch"):
+        y = torch.einsum("gsec,gecd->gsd", combine, expert_out)
     y = constrain_moe(y).reshape(B, S, d)
 
     if m.num_shared_experts:
@@ -243,40 +249,50 @@ def _moe_local(params, x, cfg: ModelConfig):
     dtype = x.dtype
 
     xl = to_local(x, spec, partial_grad=("model",))
-    router = to_local(params["router"].float(), (None, None),
-                      partial_grad=grads)
-    logits = xl.float() @ router                             # (Bl,S,E)
-    probs = torch.softmax(logits, dim=-1)
-    Gl = xl.shape[0] * S // Tg
-    gate_vals, expert_idx = top_k(probs.reshape(Gl, Tg, E), k)
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
-    dispatch, combine, keeps = _masks(expert_idx, gate_vals, E, C, dtype,
-                                      lo, hi)
+    with obs.span("moe.route"):
+        router = to_local(params["router"].float(), (None, None),
+                          partial_grad=grads)
+        logits = xl.float() @ router                         # (Bl,S,E)
+        probs = torch.softmax(logits, dim=-1)
+        Gl = xl.shape[0] * S // Tg
+        gate_vals, expert_idx = top_k(probs.reshape(Gl, Tg, E), k)
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(
+            min=1e-9)
+        dispatch, combine, keeps = _masks(expert_idx, gate_vals, E, C,
+                                          dtype, lo, hi)
 
     banks = {"wi_up": params["wi_up"], "wi_gate": params["wi_gate"],
              "wo": params["wo"]}
     whole = E % M != 0
-    w = {n: to_local(t.to(dtype), (None if whole else "model", None, None),
-                     partial_grad=grads) for n, t in banks.items()}
-    if whole:
-        w = {n: t[lo:hi] for n, t in w.items()}
-    dispatched = torch.einsum("gsec,gsd->gecd", dispatch,
-                              xl.reshape(Gl, Tg, d))
-    y = torch.einsum("gsec,gecd->gsd", combine,
-                     _experts_ffn(dispatched, w, cfg))
+    with obs.span("moe.experts"):
+        w = {n: to_local(t.to(dtype),
+                         (None if whole else "model", None, None),
+                         partial_grad=grads) for n, t in banks.items()}
+        if whole:
+            w = {n: t[lo:hi] for n, t in w.items()}
+    with obs.span("moe.dispatch"):
+        dispatched = torch.einsum("gsec,gsd->gecd", dispatch,
+                                  xl.reshape(Gl, Tg, d))
+    with obs.span("moe.experts"):
+        expert_out = _experts_ffn(dispatched, w, cfg)
+    with obs.span("moe.dispatch"):
+        y = torch.einsum("gsec,gecd->gsd", combine, expert_out)
     y = from_local(axes_sum(y.reshape(xl.shape), ("model",),
                             sum_grads=False), (B, S, d), spec)
 
     # ---- the losses from statistics summed over the tokens -----------------
-    usage = (expert_idx[..., None] == torch.arange(E, device=x.device)
-             ).float().sum((0, 1, 2))
-    lse = torch.logsumexp(logits.reshape(-1, E), dim=-1)
-    kept = sum(keep.float().sum() for keep in keeps)
-    stats = axes_sum(torch.cat([probs.reshape(-1, E).sum(0), usage,
-                                torch.square(lse).sum()[None],
-                                kept[None]]), tok_axes, sum_grads=False) / T
-    aux_loss = E * torch.sum(stats[:E] * stats[E:2 * E]) * m.router_aux_loss
-    z_loss = m.router_z_loss * stats[2 * E]
+    with obs.span("moe.route"):
+        usage = (expert_idx[..., None] == torch.arange(E, device=x.device)
+                 ).float().sum((0, 1, 2))
+        lse = torch.logsumexp(logits.reshape(-1, E), dim=-1)
+        kept = sum(keep.float().sum() for keep in keeps)
+        stats = axes_sum(torch.cat([probs.reshape(-1, E).sum(0), usage,
+                                    torch.square(lse).sum()[None],
+                                    kept[None]]), tok_axes,
+                         sum_grads=False) / T
+        aux_loss = E * torch.sum(stats[:E] * stats[E:2 * E]) \
+            * m.router_aux_loss
+        z_loss = m.router_z_loss * stats[2 * E]
     lead = torch.tensor(rm == 0, device=x.device)
     metrics = {"moe_aux_loss": torch.where(lead, aux_loss, aux_loss.detach()),
                "moe_z_loss": torch.where(lead, z_loss, z_loss.detach()),

@@ -22,6 +22,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.api import Model
@@ -33,8 +34,8 @@ from repro_torch.sharding import (batch_spec, from_local, gather_dim,
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
 
-#: ``torch.profiler`` span around a train step's clip, update and apply
-UPDATE_SPAN = "train_step.update"
+#: the span around a train step's clip, update and apply
+UPDATE_SPAN = obs.UPDATE_SPAN
 
 
 class TrainState(NamedTuple):
@@ -191,7 +192,7 @@ def make_train_step(model: Model, train_cfg: TrainConfig,
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         (loss, metrics), grads = grad_fn(state.params, batch)
         # the span a profiler reads as the optimizer's share of a step
-        with torch.no_grad(), torch.profiler.record_function(UPDATE_SPAN):
+        with torch.no_grad(), obs.span(UPDATE_SPAN):
             if train_cfg.grad_clip > 0:
                 grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
             else:
